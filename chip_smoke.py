@@ -4,33 +4,62 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each of which exits non-zero on failure (nothing is caught):
-  1. the card's name and power limit; the kernels' build from ``csrc/``;
+  1. the card's name and power limit; the kernels' build from ``csrc/``
+     (one ``nvcc`` per source, all started together);
   2. K1 (fused fitness) against its plain PyTorch twin at bench.py's
      selftest shape (256 patches x 16 particles, wide noise) on the
      synthetic bench scene and the real-photo pawn-rig scene, r in
      {3, 6, 15, 24}: exact BIG set, |err| <= 1e-4 (relative above 1);
-  3. K2 (warped-window sampler) against its plain twin: same ok set, 1e-5;
-  4. the main path: ``refine_batch`` in seed mode, one round, at the full
+  3. K2 (warped-window sampler, NCC mode) against its plain twin: same ok
+     set, 1e-5 (relative above 1);
+  4. K2' (the sampler in its view mode: every particle, margins (2, 3),
+     act and pvalid masks) against its plain twin at the selftest shape,
+     both scenes, r in {3, 6, 15, 24}: same ok set, 1e-5 (relative above
+     1, as K2); and the sampler's reference-window entry (the view mode's
+     nearest reads of the reference camera, intensity and edge weight,
+     0 on rows a rank does not own) against its twin at the same shapes:
+     equal;
+  5. the main path: ``refine_batch`` in seed mode, one round, at the full
      bench.py workload (5 cameras at 640x480, r=15, 15 particles x 30
      iterations doubled for seeds, B=1024, maxLOD 6); the launch counts of
-     that run (K1 = 61, K2 = 1), bench.py's quality bar (accepted > 50%,
-     median surface distance < 0.003), and refined patches/s timed with
-     CUDA events after a warm-up;
-  5. the same slice on the card and on the CPU (plain twins) with the same
+     that run (K1 = 61, K2 = 1, K2' = 0), bench.py's quality bar (accepted
+     > 50%, median surface distance < 0.003), and refined patches/s timed
+     with CUDA events after a warm-up, with peak device memory;
+  6. the same slice on the card and on the CPU (plain twins) with the same
      PSO draws on a small batch: they must agree;
-  6. bench.py's real-photo pawn-rig gate (2 rounds: accepted > 40%,
+  7. bench.py's real-photo pawn-rig gate (2 rounds: accepted > 40%,
      median < 2.5e-3);
-  7. the seed-stage ``Reconstructor`` end to end, writing a PLY and
+  8. the seed-stage ``Reconstructor`` end to end, writing a PLY and
      reading it back;
-  8. each kernel's time at the main path's shapes beside its plain twin's,
-     its roofline bound and, for K2, ``grid_sample`` on the same
-     coordinates; printed as one ``{"kernels": [...]}`` line.
+  9. the view-sharded fitness through a real NCCL process group of world
+     size 1 (K2' and the psum epilogue) against flat K1 on the same inputs,
+     both scenes: exact BIG set, 1e-4 (relative above 1);
+ 10. the view path at full width: the bench workload's seed round through
+     ``parallel.sharded.refine_sharded`` at dp=1, vp=1; launch counts
+     (K2' = 61, reference windows = 61, K2 = 1, K1 = 0), bench.py's bar,
+     the round timed beside
+     phase 5's flat round, with peak device memory;
+ 11. the real-photo gate through the view path (2 rounds);
+ 12. vp=5 on the one card: 5 gloo ranks, one camera each (each builds its
+     camera block from the host pyramids), B=64: the view fitness against
+     flat K1 (exact BIG set, 1e-4), and the refined batch against a vp=1
+     run with the same PSO draws (valid agreement >= 0.95, median centre
+     difference <= 1e-4), every rank returning the same bits;
+ 13. M, the microbench of K1's inner loop
+     (``python -m pais_mvs_tpu_torch.tools.microbench_kernel``): both
+     variants against the plain twin (1e-4 relative), then their times;
+ 14. each kernel's time at the main paths' shapes beside its plain twin's,
+     its roofline bound and, for K2, K2' and the reference windows,
+     ``grid_sample`` on the same coordinates; printed as one
+     ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
 
 import json
+import multiprocessing as mp
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -53,6 +82,8 @@ FP32_OPS_PER_S = 67e12
 # foreground mask 1, sums 3.
 K1_OPS_SAMPLE, K1_OPS_PIXEL, K1_OPS_GRAD = 32, 12, 4
 K2_OPS_SAMPLE = 29
+# reference window: window coordinates (2 adds) and their rounding (2)
+REF_OPS_PIXEL = 4
 
 
 def fail(msg: str, code: int = 1):
@@ -185,6 +216,165 @@ def check_sampler(label, scene, cfg, center, normal, ref, mask, lod):
     return m, (H, pt)
 
 
+def check_sampler_view(label, scene, cfg, H, pt, lod, act, pvalid):
+    """K2' vs its plain twin on the same inputs; returns max |err|."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import fitness as F
+    r = cfg.patch_radius
+    args = (scene.pyramids, H, pt, lod, act, pvalid, r)
+    plain = F.warped_samples_view(*args)
+    kern = CF.warped_samples_view(*args)
+    torch.cuda.synchronize()
+    okp, okk = plain > F.INVALID / 2, kern > F.INVALID / 2
+    if not torch.equal(okp, okk):
+        fail(f"K2' {label}: ok sets differ in {int((okp != okk).sum())} "
+             f"samples")
+    err = (kern - plain).abs()[okp]
+    m = float(err.max()) if err.numel() else 0.0
+    if m > 1e-5 * max(1.0, float(plain[okp].abs().max())):
+        fail(f"K2' {label}: max |err| {m:.3g} over tolerance")
+    log(f"K2' {label}: {int(okp.sum())}/{okp.numel()} samples valid, ok "
+        f"set equal, max |err| {m:.3g}")
+    return m
+
+
+def check_ref_window(label, scene, pt, ref, own, lod, radius, edges):
+    """The reference-window entry vs its plain twin on the same inputs,
+    rows with a finite window centre (the others are never read: their
+    particles are invalid); returns max |err|, which must be 0."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import fitness as F
+    args = (scene.pyramids, pt, ref, own, lod, radius, edges)
+    plain = F.reference_windows(*args)
+    kern = CF.reference_windows(*args)
+    torch.cuda.synchronize()
+    rows = torch.isfinite(pt).all(-1)                          # [B, P]
+    err = (kern - plain).abs()[:, rows]
+    m = float(err.max()) if err.numel() else 0.0
+    if not m == 0.0:
+        fail(f"reference window {label}: max |err| {m:.3g}, expected 0")
+    log(f"reference window {label}: {int(rows.sum())}/{rows.numel()} rows, "
+        f"{int((plain[0][rows] != 0).sum())} foreground pixels, equal")
+    return m
+
+
+def check_view_fitness(label, scene, cfg, ref, mask, lod, ray, pos, view):
+    """The view-sharded fitness (K2' + psum epilogue) vs flat K1; returns
+    max |err|."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import view_fitness as VF
+    flat = CF.patch_fitness(scene, cfg, ref, mask, lod, ray, pos)
+    got = VF.fitness_view(scene.view_block(view.index, view.size), cfg, ref,
+                          mask, lod, ray, pos, view)
+    return compare_fitness(f"view fitness {label}", got, flat)
+
+
+def compare_fitness(label, got, want):
+    """Exact BIG set, |err| <= 1e-4 (relative above 1); returns max
+    |err|."""
+    import torch
+    torch.cuda.synchronize()
+    big_w, big_g = want >= 1e20, got >= 1e20
+    if not torch.equal(big_w, big_g):
+        fail(f"{label}: BIG sets differ in {int((big_w != big_g).sum())} "
+             f"of {big_w.numel()} candidates")
+    ok = ~big_w
+    err = (got - want).abs()[ok]
+    lim = 1e-4 * torch.clamp(want.abs()[ok], min=1.0)
+    if not bool(torch.isfinite(got[ok]).all()) or bool((err > lim).any()):
+        fail(f"{label}: max |err| {float(err.max()):.3g} over tolerance")
+    m = float(err.max()) if err.numel() else 0.0
+    log(f"{label}: {int(ok.sum())}/{ok.numel()} scored, BIG set equal, "
+        f"max |err| {m:.3g}")
+    return m
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def timed_rounds(fn, reps: int = 3):
+    """(ms per round by CUDA events, ms per round by host clock, peak
+    device memory in GiB) over ``reps`` calls after the caller's warm-up."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    e0.record()
+    for _ in range(reps):
+        out = fn()
+    e1.record()
+    e1.synchronize()
+    host_ms = (time.time() - t0) / reps * 1e3
+    return (e0.elapsed_time(e1) / reps, host_ms,
+            torch.cuda.max_memory_allocated() / 2 ** 30, out)
+
+
+def vp_worker(rank, world, port, payload, out_dir):
+    """One rank of phase 12: gloo over localhost, all ranks on card 0."""
+    sys.path.insert(0, HERE)
+    import torch
+    from pais_mvs_tpu_torch.models.camera import build_scene
+    from pais_mvs_tpu_torch.models.patch import PatchBatch
+    from pais_mvs_tpu_torch.ops import view_fitness as VF
+    from pais_mvs_tpu_torch.ops.pso import PsoDraws
+    from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+    from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+    from pais_mvs_tpu_torch.parallel.sharded import refine_sharded
+    dev = init_distributed(f"tcp://localhost:{port}", rank, world,
+                           backend="gloo", device="cuda", timeout_s=300)
+    mesh = make_mesh((1, world))
+    view = mesh.view
+    cfg = payload["cfg"]
+    blk = build_scene(payload["params"], payload["images"], cfg, device=dev,
+                      view_block=(view.index, view.size))
+    on = lambda a: torch.as_tensor(a, device=dev)
+    fit = VF.fitness_view(blk, cfg, *map(on, payload["fit_in"]), view)
+    pb = PatchBatch(**{k: on(v) for k, v in payload["pb"].items()})
+    draws = [PsoDraws(*map(on, payload["draws"]))]
+    res = refine_sharded(blk, cfg, pb, 0.005, True, 1, mesh.patch, view,
+                         draws=draws)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             fit=fit.cpu().numpy(), valid=res.batch.valid.cpu().numpy(),
+             center=res.batch.center.cpu().numpy(),
+             images=np.asarray(blk.pyramids.images.shape))
+    torch.distributed.destroy_process_group()
+
+
+def run_vp_workers(world, payload, timeout_s=400.0):
+    """Start ``world`` ranks of ``vp_worker``, join them with a deadline,
+    kill them all on expiry; returns each rank's arrays."""
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=vp_worker,
+                             args=(r, world, port, payload, out_dir))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + timeout_s
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or any(c != 0 for c in codes):
+            fail(f"vp={world} ranks: still running {hung}, exit codes "
+                 f"{codes}")
+        return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                for r in range(world)]
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -211,6 +401,10 @@ def main():
     from pais_mvs_tpu_torch.ops import fitness as F
     from pais_mvs_tpu_torch.ops import lifecycle as lc
     from pais_mvs_tpu_torch.ops.pso import draw_uniforms
+    from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+    from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+    from pais_mvs_tpu_torch.parallel.sharded import refine_sharded
+    from pais_mvs_tpu_torch.tools import microbench_kernel as MB
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -289,7 +483,29 @@ def main():
                 f"{label} shift={shift}", s, c, p.center + shift, n, ref,
                 p.cam_mask, lod)[0])
 
-    # 4. the main path: one seed round at the bench workload
+    # 4. K2' and the reference windows vs plain at the selftest shape, both
+    #    scenes, four radii; act switches inactive swarms and one camera of
+    #    some patches off; every third patch's reference camera is not
+    #    owned (as on another view rank)
+    err2v = errw = 0.0
+    for label, s, c, p in (("synthetic", scene, cfg, pb),
+                           ("realistic", rscene, rcfg, rpb)):
+        sub, ref, lod, ray, pos = selftest_inputs(s, c, p, 256, 16, 7)
+        act = sub.cam_mask & (torch.arange(sub.capacity, device=dev)
+                              % 3 != 0)[:, None]
+        act[::4, 1] = False
+        own = torch.arange(sub.capacity, device=dev) % 3 != 1
+        for r in (3, 6, 15, 24):
+            cr = c.replace(patch_radius=r, dist_weighting=r / 3.0)
+            H, pt, pvalid = F.fitness_geometry(s, cr, ref, sub.cam_mask,
+                                               lod, ray, pos)
+            err2v = max(err2v, check_sampler_view(
+                f"{label} r={r}", s, cr, H, pt, lod, act, pvalid))
+            errw = max(errw, check_ref_window(f"{label} r={r}", s, pt, ref,
+                                              own, lod, r, True))
+    del H, pt, pvalid
+
+    # 5. the main path: one seed round at the bench workload
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     CF.reset_launch_counts()
@@ -300,9 +516,10 @@ def main():
     launches = dict(CF.LAUNCHES)
     log(f"main path (refine_batch, seed mode, 1 round, B={B}): first run "
         f"{first_s:.2f} s, launches {launches}")
-    if launches != {"fitness": 61, "sampler": 1}:
+    if launches != {**dict.fromkeys(CF.LAUNCHES, 0), "fitness": 61,
+                    "sampler": 1}:
         fail(f"main path launch counts {launches}, expected fitness 61 "
-             f"(1 + 2x30 PSO evaluations) and sampler 1")
+             f"(1 + 2x30 PSO evaluations), sampler 1 and no other")
     keep = res.batch.valid.cpu().numpy()
     d = sc.surface_distance(res.batch.center.cpu().numpy()[keep])
     med = float(np.median(d)) if keep.any() else float("inf")
@@ -314,23 +531,16 @@ def main():
     if not bool(torch.isfinite(res.batch.center[res.batch.valid]).all()):
         fail("main path: non-finite centres among accepted patches")
     reps = 3
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.time()
-    e0.record()
-    for _ in range(reps):
-        out = lc.refine_batch(scene, cfg, pb, 0.005, True, 1, generator=gen)
-    e1.record()
-    e1.synchronize()
-    host_s = time.time() - t0
-    round_ms = e0.elapsed_time(e1) / reps
+    round_ms, round_host, round_mem, out = timed_rounds(
+        lambda: lc.refine_batch(scene, cfg, pb, 0.005, True, 1,
+                                generator=gen), reps)
     pps = B / (round_ms / 1e3)
     log(f"main path timed: {round_ms:.2f} ms per round (CUDA events, mean "
         f"of {reps} after warm-up), {pps:.1f} refined patches/s; host "
-        f"clock {host_s / reps * 1e3:.2f} ms per round; accepted "
-        f"{int(out.batch.valid.sum())}/{B}")
+        f"clock {round_host:.2f} ms per round; peak device memory "
+        f"{round_mem:.3f} GiB; accepted {int(out.batch.valid.sum())}/{B}")
 
-    # 5. the slice on the card vs on the CPU (plain twins), same draws
+    # 6. the slice on the card vs on the CPU (plain twins), same draws
     Bs = 64
     small = pm.take(pb, np.arange(Bs))
     P, T = 2 * cfg.particle_num, 2 * cfg.max_iteration
@@ -353,7 +563,7 @@ def main():
     if agree < 0.95 or abs(int(gv.sum()) - int(cv.sum())) > 2 or mdc > 1e-4:
         fail("the card's slice disagrees with the CPU reference")
 
-    # 6. the real-photo pawn-rig gate (bench.py:184-191)
+    # 7. the real-photo pawn-rig gate (bench.py:184-191)
     rres = lc.refine_batch(rscene, rcfg, rpb, 0.01, True, 2,
                            generator=torch.Generator(device=dev)
                            .manual_seed(3))
@@ -365,7 +575,7 @@ def main():
     if not (rkeep.sum() > 0.4 * Br and rmed < 2.5e-3):
         fail("real-photo gate missed (accepted > 40%, median < 2.5e-3)")
 
-    # 7. the seed-stage Reconstructor end to end, PLY out and back
+    # 8. the seed-stage Reconstructor end to end, PLY out and back
     rec = Reconstructor(rsc.params, rsc.images,
                         rcfg.replace(seed_refine_rounds=2), verbose=False,
                         device="cuda")
@@ -387,7 +597,124 @@ def main():
             or rmed2 >= 2.5e-3):
         fail("Reconstructor seed stage / PLY round trip")
 
-    # 8. kernel times at the main path's shapes
+    # 9. the view-sharded fitness through a real NCCL group of world size 1
+    init_distributed(f"tcp://localhost:{free_port()}", 0, 1,
+                     backend="nccl", device="cuda")
+    mesh = make_mesh((1, 1))
+    log(f"process group: NCCL, world 1, layout {mesh.shape} (dp, vp)")
+    for label, s, c, p in (("synthetic", scene, cfg, pb),
+                           ("realistic", rscene, rcfg, rpb)):
+        sub, ref, lod, ray, pos = selftest_inputs(s, c, p, 256, 16, 7)
+        check_view_fitness(label, s, c, ref, sub.cam_mask, lod, ray, pos,
+                           mesh.view)
+
+    # 10. the view path at full width: one seed round, dp=1, vp=1
+    block = scene.view_block(mesh.view.index, mesh.view.size)
+    view_round = lambda: refine_sharded(block, cfg, pb, 0.005, True, 1,
+                                        mesh.patch, mesh.view, seed=0)
+    torch.cuda.synchronize()
+    CF.reset_launch_counts()
+    t0 = time.time()
+    vres = view_round()
+    torch.cuda.synchronize()
+    vfirst_s = time.time() - t0
+    vlaunches = dict(CF.LAUNCHES)
+    log(f"view path (refine_sharded, dp=1 vp=1, 1 round, B={B}): first "
+        f"run {vfirst_s:.2f} s, launches {vlaunches}")
+    if vlaunches != {**dict.fromkeys(CF.LAUNCHES, 0), "sampler_view": 61,
+                     "ref_window": 61, "sampler": 1}:
+        fail(f"view path launch counts {vlaunches}, expected sampler_view "
+             f"61, ref_window 61, sampler 1 and no other (fitness 0)")
+    vkeep = vres.batch.valid.cpu().numpy()
+    vd = sc.surface_distance(vres.batch.center.cpu().numpy()[vkeep])
+    vmed = float(np.median(vd)) if vkeep.any() else float("inf")
+    log(f"view path quality: accepted {int(vkeep.sum())}/{B}, median "
+        f"surface distance {vmed:.6f}")
+    if not (vkeep.sum() > 0.5 * B and vmed < 0.003):
+        fail("view path misses bench.py's bar (accepted > 50%, median "
+             "< 0.003)")
+    if not bool(torch.isfinite(vres.batch.center[vres.batch.valid]).all()):
+        fail("view path: non-finite centres among accepted patches")
+    vround_ms, vround_host, vround_mem, vout = timed_rounds(view_round, reps)
+    log(f"view path timed: {vround_ms:.2f} ms per round (CUDA events, mean "
+        f"of {reps} after warm-up), {B / (vround_ms / 1e3):.1f} refined "
+        f"patches/s; host clock {vround_host:.2f} ms per round; peak device "
+        f"memory {vround_mem:.3f} GiB; accepted "
+        f"{int(vout.batch.valid.sum())}/{B} | flat round {round_ms:.2f} ms "
+        f"(host {round_host:.2f} ms, peak {round_mem:.3f} GiB)")
+
+    # 11. the real-photo gate through the view path
+    rv = refine_sharded(rscene.view_block(mesh.view.index, mesh.view.size),
+                        rcfg, rpb, 0.01, True, 2, mesh.patch, mesh.view,
+                        seed=3)
+    rvkeep = rv.batch.valid.cpu().numpy()
+    rvd = rsc.surface_distance(rv.batch.center.cpu().numpy()[rvkeep])
+    rvmed = float(np.median(rvd)) if rvkeep.any() else float("inf")
+    log(f"realistic gate, view path: {int(rvkeep.sum())}/{Br} seeds, "
+        f"median surface distance {rvmed:.6f}")
+    if not (rvkeep.sum() > 0.4 * Br and rvmed < 2.5e-3):
+        fail("real-photo gate missed on the view path (accepted > 40%, "
+             "median < 2.5e-3)")
+
+    # 12. vp=5 on the one card: 5 gloo ranks, one camera each, B=64
+    sub5, ref5, lod5, ray5, pos5 = selftest_inputs(scene, cfg, pb, Bs, 16, 9)
+    flat5 = CF.patch_fitness(scene, cfg, ref5, sub5.cam_mask, lod5, ray5,
+                             pos5)
+    v1 = refine_sharded(block, cfg, small, 0.005, True, 1, mesh.patch,
+                        mesh.view,
+                        draws=[type(draws)(*(t.to(dev) for t in draws))])
+    t0 = time.time()
+    outs = run_vp_workers(5, dict(
+        cfg=cfg, params=sc.params, images=sc.images,
+        fit_in=[t.cpu().numpy() for t in (ref5, sub5.cam_mask, lod5, ray5,
+                                          pos5)],
+        pb=small.numpy(), draws=tuple(t.numpy() for t in draws)))
+    for k in ("fit", "valid", "center"):
+        if not all(np.array_equal(o[k], outs[0][k]) for o in outs[1:]):
+            fail(f"vp=5: the ranks returned different {k}")
+    if any(int(o["images"][0]) != 1 for o in outs):
+        fail("vp=5: a rank holds more than its one camera")
+    compare_fitness("vp=5 view fitness vs flat K1",
+                    torch.as_tensor(outs[0]["fit"], device=dev), flat5)
+    v1v = v1.batch.valid.cpu().numpy()
+    v5v = outs[0]["valid"]
+    bv = v1v & v5v
+    dc5 = np.linalg.norm(outs[0]["center"][bv]
+                         - v1.batch.center.cpu().numpy()[bv], axis=-1)
+    agree5 = float((v1v == v5v).mean())
+    mdc5 = float(np.median(dc5)) if bv.any() else float("inf")
+    log(f"vp=5 vs vp=1 refine (B={Bs}, same draws, {time.time() - t0:.1f} "
+        f"s for 5 ranks): valid agreement {agree5:.3f}, accepted "
+        f"{int(v5v.sum())} vs {int(v1v.sum())}, median centre difference "
+        f"{mdc5:.3g}")
+    if agree5 < 0.95 or mdc5 > 1e-4:
+        fail("vp=5 refine disagrees with vp=1")
+    torch.distributed.destroy_process_group()
+
+    # 13. M: the microbench tool (its launches), then each variant against
+    #     the plain twin and their times
+    CF.reset_launch_counts()
+    if MB.main(["--reps", "20"]) != 0:
+        fail("the microbench tool failed")
+    mb_launches = dict(CF.LAUNCHES)
+    box = MB.make_box(0)
+    mb_plain = MB.run_grid_plain(box)
+    mb = {}
+    for v in MB.VARIANTS:
+        got = MB.run_grid(box, variant=v)
+        rel = MB.max_rel_err(got, mb_plain)
+        if not rel <= 1e-4:
+            fail(f"M({v}): relative error {rel:.3g} over 1e-4")
+        mb[v] = (float((got - mb_plain).abs().max()),
+                 time_ms(lambda: MB.run_grid(box, variant=v), reps=50))
+    mb_plain_ms = time_ms(lambda: MB.run_grid_plain(box), reps=3, warmup=1)
+    mb_bound, mb_by = MB.bound_ms()
+    log(f"M at {MB.CELLS} cells: (a) {mb['a'][1]:.4f} ms, (b) "
+        f"{mb['b'][1]:.4f} ms, plain {mb_plain_ms:.3f} ms, bound "
+        f"{mb_bound:.4f} ms ({mb_by}); max |err| (a) {mb['a'][0]:.3g}, (b) "
+        f"{mb['b'][0]:.3g}; tool launches {mb_launches}")
+
+    # 14. kernel times at the main path's shapes
     #    K1: the first PSO evaluation of the round (particles drawn in the
     #    PSO bounds, every live swarm active); the atlas stays in L2 across
     #    the PSO loop, as it does here across repeated launches
@@ -503,6 +830,102 @@ def main():
         f", grid_sample {lib_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}: "
         f"{k2_bytes:.3e} bytes of which atlas {n_k2} elements of "
         f"{atlas.numel()}, {k2_ops:.3e} FP32 ops)")
+    del grid, uu, vv, w, sw
+
+    #    K2': the round's first view-path evaluation, on K1's inputs above
+    #    (H, pt, pvalid of every particle; act = live swarms x visible
+    #    cameras)
+    act = (valid[:, None] & pb.cam_mask).contiguous()
+    k2v = (scene.pyramids, H, pt, lod, act, pvalid, r)
+    err2v = max(err2v, check_sampler_view(f"main shape B={B} P={P}", scene,
+                                          cfg, H, pt, lod, act, pvalid))
+    k2v_ms = time_ms(lambda: CF.warped_samples_view(*k2v), reps=20)
+    k2v_plain = time_ms(lambda: F.warped_samples_view(*k2v), reps=3,
+                        warmup=1)
+    k2v_ops = float(int((act[:, :, None] & pvalid[:, None, :]).sum())
+                    * W2 * K2_OPS_SAMPLE)
+    #    bytes: the atlas elements the computed samples' taps read (K1's
+    #    in-margin image taps above: the same particles, cameras and
+    #    margins), H and pt of the kept particles, the small inputs whole,
+    #    the [B, C, P, W2] f32 output written once
+    n_k2v = int(img_t.sum())
+    k2v_bytes = float(n_k2v * atlas.element_size() + n_kept * (C * 9 + 2) * 4
+                      + B * 4 + act.numel() + pvalid.numel()
+                      + B * C * P * W2 * 4)
+    k2v_bound = max(k2v_bytes / HBM_BYTES_PER_S,
+                    k2v_ops / FP32_OPS_PER_S) * 1e3
+    k2v_by = ("bytes" if k2v_bytes / HBM_BYTES_PER_S
+              >= k2v_ops / FP32_OPS_PER_S else "operations")
+    #    grid_sample on the same coordinates, one grid row per particle
+    win = pt[:, :, None, :] + offs                             # [B,P,W2,2]
+    x, y = win[..., 0][..., None], win[..., 1][..., None]
+    Hc = H[:, :, None]                                         # [B,P,1,C,3,3]
+    w = Hc[..., 2, 0] * x + Hc[..., 2, 1] * y + Hc[..., 2, 2]
+    sw = torch.where(w == 0, 1.0, w)
+    uu = (Hc[..., 0, 0] * x + Hc[..., 0, 1] * y + Hc[..., 0, 2]) / sw
+    vv = (Hc[..., 1, 0] * x + Hc[..., 1, 1] * y + Hc[..., 1, 2]) / sw
+    vv = vv + scene.pyramids.yoff[lod.long()].float()[:, None, None, None]
+    grid = torch.stack([uu / (Wa - 1) * 2 - 1, vv / (Ha - 1) * 2 - 1],
+                       -1).permute(3, 0, 1, 2, 4).reshape(
+                           C, B * P, W2, 2).contiguous()       # [C,BP,W2,2]
+    del win, x, y, Hc, w, sw, uu, vv
+    lib_v_ms = time_ms(lambda: TNF.grid_sample(
+        img, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), reps=20)
+    log(f"K2' at B={B} P={P} r={r}: {k2v_ms:.4f} ms/launch, plain "
+        f"{k2v_plain:.3f} ms, grid_sample {lib_v_ms:.4f} ms, bound "
+        f"{k2v_bound:.4f} ms ({k2v_by}: {k2v_bytes:.3e} bytes of which the "
+        f"output {B * C * P * W2 * 4:.3e} and atlas {n_k2v} elements, "
+        f"{k2v_ops:.3e} FP32 ops); x61 per view round = "
+        f"{61 * k2v_ms:.2f} ms of the {vround_ms:.2f} ms round")
+    del grid, img
+
+    #    the reference windows: the same evaluation's reads of the reference
+    #    camera (vp=1, so every row is owned; the edge plane only if the
+    #    workload weighs gradients, as the view path does)
+    grad = cfg.adaptive_gradient_enable
+    nplanes = 2 if grad else 1
+    own = torch.ones(B, dtype=torch.bool, device=dev)
+    kw = (scene.pyramids, pt, ref, own, lod, r, grad)
+    errw = max(errw, check_ref_window(f"main shape B={B} P={P}", scene, pt,
+                                      ref, own, lod, r, grad))
+    kw_ms = time_ms(lambda: CF.reference_windows(*kw), reps=50)
+    kw_plain = time_ms(lambda: F.reference_windows(*kw), reps=5, warmup=1)
+    #    bytes: the distinct atlas elements the lookups read (every row:
+    #    the kernel reads invalid particles' windows too), pt and the small
+    #    inputs, the [n, B, P, W2] f32 output written once
+    win = pt[:, :, None, :] + offs                             # [B,P,W2,2]
+    yo = scene.pyramids.yoff[lod.long()][:, None, None]
+    xr = torch.round(win[..., 0]).to(torch.int32).clamp(0, Wa - 1).long()
+    yr = (torch.round(win[..., 1]).to(torch.int32) + yo).clamp(
+        0, Ha - 1).long()
+    n_ref = int(torch.unique(ref.long()[:, None, None] * (Ha * Wa)
+                             + yr * Wa + xr).numel())
+    del xr, yr
+    kw_bytes = float(nplanes * (n_ref * atlas.element_size()
+                                + B * P * W2 * 4) + B * P * 2 * 4 + B * 9)
+    kw_ops = float(B * P * W2 * REF_OPS_PIXEL)
+    kw_bound = max(kw_bytes / HBM_BYTES_PER_S, kw_ops / FP32_OPS_PER_S) * 1e3
+    kw_by = ("bytes" if kw_bytes / HBM_BYTES_PER_S
+             >= kw_ops / FP32_OPS_PER_S else "operations")
+    #    grid_sample (nearest) on the same pixels: the cameras' atlases
+    #    stacked as the rows of one image, one channel per plane
+    stack = torch.stack([atlas, scene.pyramids.edges][:nplanes]).float(
+        ).reshape(1, nplanes, C * Ha, Wa)
+    gy = ref.float()[:, None, None] * Ha + yo.float() + win[..., 1]
+    grid = torch.stack([win[..., 0] / (Wa - 1) * 2 - 1,
+                        gy / (C * Ha - 1) * 2 - 1], -1).reshape(
+                            1, B * P, W2, 2)
+    del win, gy
+    lib_w_ms = time_ms(lambda: TNF.grid_sample(
+        stack, grid, mode="nearest", padding_mode="zeros",
+        align_corners=True), reps=50)
+    log(f"reference window at B={B} P={P} r={r} ({nplanes} plane(s)): "
+        f"{kw_ms:.4f} ms/launch, plain {kw_plain:.3f} ms, grid_sample "
+        f"{lib_w_ms:.4f} ms, bound {kw_bound:.4f} ms ({kw_by}: "
+        f"{kw_bytes:.3e} bytes of which atlas {n_ref} elements, "
+        f"{kw_ops:.3e} FP32 ops); x61 per view round = {61 * kw_ms:.2f} ms")
+    del stack, grid
     torch.cuda.synchronize()
 
     kernels = [
@@ -518,7 +941,25 @@ def main():
          "launches": launches["sampler"], "max_abs_err": err2,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
-    ]
+        {"name": "warped_sampler_view", "route": "cuda",
+         "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
+         "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
+         "launches": vlaunches["sampler_view"], "max_abs_err": err2v,
+         "ms": k2v_ms, "plain_ms": k2v_plain, "bound_ms": k2v_bound,
+         "bound_by": k2v_by, "library_ms": lib_v_ms},
+        {"name": "reference_window", "route": "cuda",
+         "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
+         "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
+         "launches": vlaunches["ref_window"], "max_abs_err": errw,
+         "ms": kw_ms, "plain_ms": kw_plain, "bound_ms": kw_bound,
+         "bound_by": kw_by, "library_ms": lib_w_ms},
+    ] + [
+        {"name": f"microbench_{v}", "route": "cuda",
+         "source": "pais_mvs_tpu_torch/csrc/microbench.cu",
+         "replaces": "tools/microbench_kernel.py:52",
+         "launches": mb_launches[f"microbench_{v}"], "max_abs_err": mb[v][0],
+         "ms": mb[v][1], "plain_ms": mb_plain_ms, "bound_ms": mb_bound,
+         "bound_by": mb_by, "library_ms": None} for v in MB.VARIANTS]
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

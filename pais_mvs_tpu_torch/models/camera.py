@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,6 +120,28 @@ class Scene:
         return Scene(rig=self.rig.to(device),
                      pyramids=self.pyramids.to(device))
 
+    def view_block(self, index: int, size: int) -> "Scene":
+        """Camera block ``index`` of ``size``: the big per-camera atlases
+        (images, edges, var, rgb) keep cameras ``[offset, offset +
+        c_local)``; the rig, ``dims`` and ``yoff`` stay whole. The layout
+        of one view shard (pais_mvs_tpu/parallel/mesh.py:55-65)."""
+        sl = _block_slice(self.num_cameras, index, size)
+        p = self.pyramids
+        return Scene(rig=self.rig, pyramids=PyramidSet(
+            images=p.images[sl], edges=p.edges[sl], dims=p.dims,
+            rgb=p.rgb[sl], var=p.var[sl], yoff=p.yoff))
+
+
+def _block_slice(num_cameras: int, index: int, size: int) -> slice:
+    """Cameras of view block ``index`` of ``size`` equal blocks."""
+    if size < 1 or num_cameras % size:
+        raise ValueError(f"the view axis of size {size} must divide the "
+                         f"camera count {num_cameras}")
+    if not 0 <= index < size:
+        raise ValueError(f"view block {index} is outside 0..{size - 1}")
+    c_local = num_cameras // size
+    return slice(index * c_local, (index + 1) * c_local)
+
 
 def undistort_image(img: np.ndarray, focal, principal,
                     r_dist: float) -> np.ndarray:
@@ -172,18 +194,23 @@ def undistort_points(pts: np.ndarray, focal, principal,
 
 def build_scene(params: Sequence[CameraParams],
                 rgb_images: Sequence[np.ndarray],
-                cfg: MvsConfig, device="cuda") -> Scene:
+                cfg: MvsConfig, device="cuda",
+                view_block: Optional[Tuple[int, int]] = None) -> Scene:
     """Assemble the device-side Scene from parsed cameras + decoded images.
 
     ``rgb_images[i]`` is a uint8 [H, W, 3] (or gray [H, W]) array for camera
     ``i``. Per-camera derived quantities follow TMVS/mvs/camera.cpp:45-136.
     With ``cfg.apply_distortion`` images are undistorted here and the
     engine runs pure pinhole everywhere (as ``pais_mvs_tpu`` does).
+
+    ``view_block=(index, size)`` builds ``Scene.view_block(index, size)``:
+    the atlases are cut on the host, so only the block reaches the device.
     """
     dev = resolve_device(device)
     C = len(params)
     if C != len(rgb_images):
         raise ValueError(f"{C} cameras but {len(rgb_images)} images")
+    blk = slice(None) if view_block is None else _block_slice(C, *view_block)
     if cfg.apply_distortion:
         rgb_images = [
             undistort_image(img, p.focal,
@@ -256,9 +283,9 @@ def build_scene(params: Sequence[CameraParams],
     # bf16 atlases, as pais_mvs_tpu/models/camera.py:236-245 keeps them:
     # 0..255 level-0 intensities are bf16-exact (background test preserved)
     pyrs = PyramidSet(
-        images=bf16(images), edges=bf16(edges),
+        images=bf16(images[blk]), edges=bf16(edges[blk]),
         dims=torch.as_tensor(dims, dtype=torch.int32, device=dev),
-        rgb=torch.as_tensor(rgb_packed, device=dev),
-        var=bf16(var_maps),
+        rgb=torch.as_tensor(rgb_packed[blk], device=dev),
+        var=bf16(var_maps[blk]),
         yoff=torch.as_tensor(yoff, dtype=torch.int32, device=dev))
     return Scene(rig=rig, pyramids=pyrs)

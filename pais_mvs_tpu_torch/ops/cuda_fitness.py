@@ -1,23 +1,34 @@
-"""The two CUDA kernels of the slice, their wrappers and their build.
+"""The CUDA kernels of the port, their wrappers and their build.
 
 The counterpart of ``pais_mvs_tpu/ops/pallas_fitness.py``:
 
   * ``score_windows`` — the fused photoconsistency fitness (K1,
     ``csrc/fitness.cu``), replacing ``_fused_kernel`` (pallas_fitness.py:552);
-  * ``warped_samples`` — the warped-window sampler (K2,
-    ``csrc/sampler.cu``), replacing ``_sample_kernel`` (pallas_fitness.py:67).
+  * ``warped_samples`` — the warped-window sampler in its NCC mode (K2,
+    ``csrc/sampler.cu``), replacing ``_sample_kernel`` (pallas_fitness.py:67)
+    as ``warped_patch_vectors_pallas`` (:867) calls it;
+  * ``warped_samples_view`` — the same sampler in its view (fitness) mode
+    (K2', ``csrc/sampler.cu``), as ``_run_sampler_raw`` (:421) serves
+    ``view_fitness.fitness_view_pallas``: every particle, margins (2, 3),
+    ``act`` and ``pvalid`` masks;
+  * ``reference_windows`` — the view mode's nearest reads of the reference
+    camera's intensity and edge weight (``csrc/sampler.cu``), which
+    ``_ref_window_rows`` (view_fitness.py:198) makes with the same kernel.
 
 Each wrapper has the signature of its plain twin in ``ops/fitness.py``. A
 CPU tensor runs the plain twin; a CUDA tensor launches the kernel or raises
-(no fallback). Both kernels are held to the jnp contract of
-``pais_mvs_tpu/ops/fitness.py``, never to the Pallas output: without the
-TPU's VMEM box there is no coverage limit and no radius ceiling.
+(no fallback). The kernels are held to the jnp contracts of
+``pais_mvs_tpu/ops/fitness.py`` and ``ops/view_fitness.py``, never to the
+Pallas output: without the TPU's VMEM box there is no coverage limit and no
+radius ceiling.
 
-Build: ``nvcc`` compiles each ``csrc/*.cu`` into its own shared library with
-a plain C interface (no PyTorch headers, so each build takes seconds), in
-parallel, at first use, into ``pais_mvs_tpu_torch/_build/`` (keyed by a hash
-of the source and flags); ``ctypes`` binds it. Every launch adds one to
-``LAUNCHES[name]``; nothing else touches the counts.
+Build: ``nvcc`` compiles each ``csrc/*.cu`` (``SOURCES``) into its own
+shared library with a plain C interface (no PyTorch headers, so each build
+takes seconds), in parallel, at first use, into ``pais_mvs_tpu_torch/
+_build/`` (keyed by a hash of the source and flags); ``ctypes`` binds each
+C entry (``ENTRIES``; ``microbench.cu`` serves
+``pais_mvs_tpu_torch/tools/microbench_kernel.py``). Every launch adds one
+to ``LAUNCHES[entry]``; nothing else touches the counts.
 """
 
 from __future__ import annotations
@@ -40,23 +51,38 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-KERNELS = {"fitness": "fitness.cu", "sampler": "sampler.cu"}
+SOURCES = {"fitness": "fitness.cu", "sampler": "sampler.cu",
+           "microbench": "microbench.cu"}
 MAX_CAMERAS = 8           # fitness.cu's per-pixel register array (kMaxCams)
 
-LAUNCHES = {name: 0 for name in KERNELS}
-_LIBS: dict = {}
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
+# C entry -> (source, argument types); the C symbol is pais_<entry>
+ENTRIES = {
     # images, edges, dims, yoff, C, L, Ha, Wa, H, pt, ref_cam, lod,
     # cam_mask, pvalid, active, wtable, B, P, radius, use_dist, use_diff,
     # diff_w, use_grad, grad_w, out, stream
-    "fitness": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                _P, _I, _I, _I, _I, _I, _F, _I, _F, _P, _P],
+    "fitness": ("fitness", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
+                            _P, _P]),
     # images, dims, yoff, C, L, Ha, Wa, H, pt, lod, cam_mask, B, radius,
     # out, stream
-    "sampler": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    "sampler": ("sampler", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                            _I, _P, _P]),
+    # images, dims, yoff, C, L, Ha, Wa, H, pt, lod, act, pvalid, B, P,
+    # radius, lo, hi, out, stream
+    "sampler_view": ("sampler", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _F, _F, _P, _P]),
+    # images, edges, yoff, Ha, Wa, pt, ref_cam, own, lod, B, P, radius,
+    # out, stream
+    "ref_window": ("sampler", [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                               _I, _P, _P]),
+    # box, nbox, cells, out, stream
+    "microbench_a": ("microbench", [_P, _I, _I, _P, _P]),
+    "microbench_b": ("microbench", [_P, _I, _I, _P, _P]),
 }
+
+LAUNCHES = {name: 0 for name in ENTRIES}
+_LIBS: dict = {}          # entry -> (C function, error-string function)
 
 
 def reset_launch_counts() -> None:
@@ -72,56 +98,60 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / KERNELS[name]).read_bytes()
+def _lib_path(source: str) -> Path:
+    src = (CSRC / SOURCES[source]).read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
+    return BUILD_DIR / f"lib{source}_{tag[:16]}.so"
 
 
-def build_kernels(names=None) -> dict:
-    """Compile (in parallel) and load every kernel not yet loaded. Returns
-    ``{name: compiler output}`` for the kernels compiled by this call
+def build_kernels(sources=None) -> dict:
+    """Compile (in parallel) and bind every source not yet bound. Returns
+    ``{source: compiler output}`` for the sources compiled by this call
     (``-Xptxas -v`` reports registers, shared memory and spills)."""
-    names = [n for n in (names or KERNELS) if n not in _LIBS]
+    bound = {ENTRIES[e][0] for e in _LIBS}
+    sources = [s for s in (sources or SOURCES) if s not in bound]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = _lib_path(name)
+    for source in sources:
+        out = _lib_path(source)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name])],
+        procs[source] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / SOURCES[source])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     logs = {}
-    for name, (proc, tmp, out) in procs.items():
+    for source, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {KERNELS[name]}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {SOURCES[source]}:\n{log}")
         os.replace(tmp, out)         # atomic: a concurrent loader never sees
-        logs[name] = log             # a half-written library
-    for name in names:
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, f"pais_{name}")
-        fn.argtypes = _ARGTYPES[name]
+        logs[source] = log           # a half-written library
+    for entry, (source, argtypes) in ENTRIES.items():
+        if source not in sources:
+            continue
+        lib = ctypes.CDLL(str(_lib_path(source)))
+        fn = getattr(lib, f"pais_{entry}")
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"pais_{name}_error")
+        err = getattr(lib, f"pais_{source}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _LIBS[name] = (fn, err)
+        _LIBS[entry] = (fn, err)
     return logs
 
 
-def _launch(name: str, *args) -> None:
-    if name not in _LIBS:
-        build_kernels([name])
-    fn, err = _LIBS[name]
+def _launch(entry: str, *args) -> None:
+    if entry not in _LIBS:
+        build_kernels([ENTRIES[entry][0]])
+    fn, err = _LIBS[entry]
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
+        raise RuntimeError(f"{entry} kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
-    LAUNCHES[name] += 1
+    LAUNCHES[entry] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape=None) -> int:
@@ -206,6 +236,62 @@ def warped_samples(pyrs, H, pt, lod, cam_mask, radius: int):
             _check("lod", lod, torch.int32, (B,)),
             _check("cam_mask", cam_mask, torch.bool, (B, C)),
             B, radius, out.data_ptr())
+    return out
+
+
+def warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius: int):
+    """K2': bilinear samples of every (patch, camera, particle, window
+    pixel), INVALID outside the fitness margins [2, dim-3), where w = 0, or
+    where ``act`` or ``pvalid`` is False.
+
+    H [B, P, C, 3, 3] f32, pt [B, P, 2] f32, lod [B] int32, act [B, C]
+    bool, pvalid [B, P] bool -> [B, C, P, W2] f32."""
+    if H.device.type == "cpu":
+        return F.warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius)
+    B, P, C = H.shape[:3]
+    W2 = (2 * radius + 1) ** 2
+    images, dims, yoff, C_atlas, L, Ha, Wa = _atlas_args(pyrs)
+    if C_atlas != C:
+        raise ValueError(f"H has {C} cameras, the atlas {C_atlas}")
+    out = torch.empty((B, C, P, W2), dtype=torch.float32, device=H.device)
+    _launch("sampler_view", images, dims, yoff, C, L, Ha, Wa,
+            _check("H", H, torch.float32, (B, P, C, 3, 3)),
+            _check("pt", pt, torch.float32, (B, P, 2)),
+            _check("lod", lod, torch.int32, (B,)),
+            _check("act", act, torch.bool, (B, C)),
+            _check("pvalid", pvalid, torch.bool, (B, P)),
+            B, P, radius, 2.0, 3.0, out.data_ptr())
+    return out
+
+
+def reference_windows(pyrs, pt, ref_cam, own, lod, radius: int,
+                      edges: bool):
+    """The reference camera's intensity and (with ``edges``) edge weight at
+    the nearest pixel of every window pixel of every particle; 0 in the
+    rows whose reference camera this rank does not hold.
+
+    pt [B, P, 2] f32, ref_cam [B] int32 (an index into the atlas block),
+    own [B] bool, lod [B] int32 -> [n, B, P, W2] f32 (n = 2 with
+    ``edges``, else 1)."""
+    if pt.device.type == "cpu":
+        return F.reference_windows(pyrs, pt, ref_cam, own, lod, radius,
+                                   edges)
+    B, P = pt.shape[:2]
+    W2 = (2 * radius + 1) ** 2
+    L = pyrs.dims.shape[1]
+    _, Ha, Wa = pyrs.images.shape
+    out = torch.empty((2 if edges else 1, B, P, W2), dtype=torch.float32,
+                      device=pt.device)
+    _launch("ref_window",
+            _check("images", pyrs.images, torch.bfloat16),
+            _check("edges", pyrs.edges, torch.bfloat16, pyrs.images.shape)
+            if edges else None,
+            _check("yoff", pyrs.yoff, torch.int32, (L + 1,)), Ha, Wa,
+            _check("pt", pt, torch.float32, (B, P, 2)),
+            _check("ref_cam", ref_cam, torch.int32, (B,)),
+            _check("own", own, torch.bool, (B,)),
+            _check("lod", lod, torch.int32, (B,)),
+            B, P, radius, out.data_ptr())
     return out
 
 

@@ -10,9 +10,11 @@ tensor program over ``[B, P]`` (patches x particles).
 Each scoring function is split where its kernel begins:
   * ``fitness_geometry`` / ``warp_geometry``: per-particle homographies,
     reference-window centres and validity, shared by both routes;
-  * ``score_windows`` / ``warped_samples``: the pixel work, the plain twins
-    of the CUDA kernels in ``ops/cuda_fitness.py``. They run for CPU
-    tensors, and ``chip_smoke.py`` holds each kernel against its twin.
+  * ``score_windows`` / ``warped_samples`` / ``warped_samples_view`` /
+    ``reference_windows``: the pixel work, the plain twins of the CUDA
+    kernels in
+    ``ops/cuda_fitness.py``. They run for CPU tensors, and
+    ``chip_smoke.py`` holds each kernel against its twin.
 
 Semantics matched to the reference:
   * candidate = (theta, phi, depth) against a fixed (ref cam, cam set, LOD);
@@ -326,6 +328,58 @@ def warped_samples(pyrs, H, pt, lod, cam_mask, radius: int):
                                 lod[:, None, None], uv, pyrs.dims, 0.0, 1.0)
     vok = vok & (w != 0) & cam_mask[:, None, :]
     return torch.where(vok, vals, INVALID).transpose(1, 2).contiguous()
+
+
+def warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius: int):
+    """Plain twin of the sampler kernel's view mode: bilinear samples of
+    every (patch, camera, particle, window pixel) with the fitness margins,
+    INVALID outside [2, dim-3), where w is 0, or where ``act`` (patch,
+    camera) or ``pvalid`` (patch, particle) is False. The sampling stage of
+    pais_mvs_tpu/ops/view_fitness.py::fitness_view_jnp (:145-160) on a
+    camera block (``pyrs`` holds the block and its dims).
+
+    H [B, P, C, 3, 3], pt [B, P, 2], lod [B], act [B, C], pvalid [B, P]
+    -> [B, C, P, W2] f32."""
+    C = H.shape[2]
+    offs = _offsets_on(radius, pt.device)
+    win = pt[:, :, None, :] + offs                            # [B, P, W2, 2]
+    x = win[..., 0][..., None]                                # [B, P, W2, 1]
+    y = win[..., 1][..., None]
+    Hc = H[:, :, None, :, :, :]                               # [B, P, 1, C, 3, 3]
+    w = Hc[..., 2, 0] * x + Hc[..., 2, 1] * y + Hc[..., 2, 2]
+    sw = torch.where(w == 0, 1.0, w)
+    u = (Hc[..., 0, 0] * x + Hc[..., 0, 1] * y + Hc[..., 0, 2]) / sw
+    v = (Hc[..., 1, 0] * x + Hc[..., 1, 1] * y + Hc[..., 1, 2]) / sw
+    uv = torch.stack([u, v], dim=-1)                          # [B, P, W2, C, 2]
+    cam_idx = torch.arange(C, dtype=torch.int32, device=pt.device)
+    vals, vok = bilinear_gather(pyrs.images, pyrs.yoff, cam_idx,
+                                lod[:, None, None, None], uv, pyrs.dims,
+                                2.0, 3.0)
+    vok = (vok & (w != 0) & act[:, None, None, :]
+           & pvalid[:, :, None, None])
+    return torch.where(vok, vals, INVALID).permute(0, 3, 1, 2).contiguous()
+
+
+def reference_windows(pyrs, pt, ref_cam, own, lod, radius: int,
+                      edges: bool):
+    """Plain twin of the sampler kernel's reference-window entry: the
+    reference camera's intensity and, with ``edges``, its edge weight at the
+    nearest pixel (per-pixel round(pt + offset)) of every window pixel, as
+    pais_mvs_tpu/ops/view_fitness.py::fitness_view_jnp reads them
+    (:135-143, :185-187); 0 in the rows of patches whose reference camera
+    this rank does not hold (``where``, so nothing of those rows leaks).
+
+    pt [B, P, 2], ref_cam [B] (an index into ``pyrs``' cameras, valid on
+    every row), own [B] bool, lod [B] -> [n, B, P, W2] f32, n = 2 with
+    ``edges`` (intensity, edge weight), else 1."""
+    win = pt[:, :, None, :] + _offsets_on(radius, pt.device)  # [B, P, W2, 2]
+    cam, lod_b = ref_cam[:, None, None], lod[:, None, None]
+    own_b = own[:, None, None]
+    atlases = (pyrs.images, pyrs.edges) if edges else (pyrs.images,)
+    return torch.stack([
+        torch.where(own_b, nearest_gather(a, pyrs.yoff, cam, lod_b,
+                                          win).float(), 0.0)
+        for a in atlases])
 
 
 def warped_patch_vectors(scene, cfg: MvsConfig, center, normal, ref_cam,

@@ -1,0 +1,113 @@
+"""The (patch, view) process layout over ``torch.distributed``.
+
+The counterpart of ``pais_mvs_tpu/parallel/mesh.py``. There a JAX ``Mesh``
+names two axes and collectives run over an axis inside ``shard_map``. Here
+each process is one cell of a ``dp x vp`` grid (rank = patch index * vp +
+view index), and each axis is a ``torch.distributed`` group:
+
+  * the patch axis shards the batch of swarms (data parallel);
+  * the view axis shards the per-camera mip-atlases (camera blocks, see
+    ``models/camera.py::Scene.view_block``); the photoconsistency terms
+    compose over it with sums (``ops/view_fitness.py``).
+
+The view code calls collectives only through ``Collective``. A world of
+size 1 is a real process group of one rank.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+PATCH_AXIS = "patch"
+VIEW_AXIS = "view"
+
+
+class Collective:
+    """Collectives over one axis of the layout: ``size`` ranks, of which
+    this process is number ``index``.
+
+    Every reduction is an ``all_reduce`` SUM, which gives every rank of the
+    group the same bits. On gloo the tensors are staged through host
+    memory (gloo's CUDA support differs by collective and version); NCCL
+    reduces on the card. ``all_gather`` is an all_reduce over a zero-filled
+    buffer in which each rank fills its own block: exact, since x + 0 = x,
+    and one code path for both backends.
+    """
+
+    def __init__(self, group, size: int, index: int):
+        self.group = group
+        self.size = size
+        self.index = index
+        self._host = dist.get_backend(group) == "gloo"
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over the axis (a new tensor; ``x`` is untouched).
+        bf16/f16 reduce in f32 and come back in their own dtype; bool is
+        refused (sum an integer count instead)."""
+        if x.dtype == torch.bool:
+            raise TypeError("psum of a bool tensor: sum an int count")
+        half = x.dtype in (torch.bfloat16, torch.float16)
+        y = (x.float() if half else x).to(
+            "cpu" if self._host else x.device, copy=True).contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
+        y = y.to(x.device)
+        return y.to(x.dtype) if half else y
+
+    def own_psum(self, x: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
+        """psum of ``x`` masked to the owning rank (``own`` broadcastable
+        bool); ``where``, not multiply, so a non-owner's garbage or NaN
+        cannot leak (pais_mvs_tpu/ops/view_fitness.py:66-69)."""
+        return self.psum(torch.where(own, x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device)))
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Concatenation of every rank's ``x`` along ``dim``, in rank
+        order (``jax.lax.all_gather(..., tiled=True)``)."""
+        dim = dim % x.dim()
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.size
+        is_bool = x.dtype == torch.bool
+        src = x.to(torch.uint8) if is_bool else x
+        buf = torch.zeros(shape, dtype=src.dtype, device=x.device)
+        buf.narrow(dim, self.index * n, n).copy_(src)
+        out = self.psum(buf)
+        return out.bool() if is_bool else out
+
+
+class Mesh(NamedTuple):
+    """This rank's collectives over the two axes (PATCH_AXIS, VIEW_AXIS)."""
+
+    patch: Collective
+    view: Collective
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.patch.size, self.view.size)
+
+
+def make_mesh(shape: Optional[Tuple[int, int]] = None) -> Mesh:
+    """Build this rank's (patch, view) groups over the initialised world.
+    Default: every rank on the patch axis (atlases replicated), the right
+    choice while the pyramids fit on each card. Every rank must call this
+    with the same shape: ``new_group`` is collective."""
+    world = dist.get_world_size()
+    rank = dist.get_rank()
+    dp, vp = shape if shape is not None else (world, 1)
+    if dp < 1 or vp < 1 or dp * vp != world:
+        raise ValueError(f"mesh shape {(dp, vp)} does not fill the world "
+                         f"of {world} ranks")
+    pi, vi = divmod(rank, vp)
+    patch = view = None
+    for v in range(vp):
+        g = dist.new_group([p * vp + v for p in range(dp)])
+        if v == vi:
+            patch = Collective(g, dp, pi)
+    for p in range(dp):
+        g = dist.new_group([p * vp + v for v in range(vp)])
+        if p == pi:
+            view = Collective(g, vp, vi)
+    return Mesh(patch, view)

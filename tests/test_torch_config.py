@@ -73,7 +73,8 @@ def test_config_txt_parses_to_equal_fields_and_blob(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import in a fresh
-    interpreter with jax, flax and pais_mvs_tpu blocked."""
+    interpreter with jax, flax and pais_mvs_tpu blocked; the walk reaches
+    the view-sharded path and the microbench tool."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCK = ("jax", "jaxlib", "flax", "pais_mvs_tpu")
@@ -91,6 +92,10 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
         assert not bad, bad
+        need = ["pais_mvs_tpu_torch." + m for m in (
+            "ops.view_fitness", "parallel.mesh", "parallel.distributed",
+            "parallel.sharded", "tools.microbench_kernel")]
+        assert all(m in sys.modules for m in need), need
         print("isolated")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -9,7 +9,10 @@ fixture, so it also runs on a machine with the card and no JAX:
 
 Tolerances: K1's BIG set exactly, values to 1e-4 (relative above 1): the
 per-pixel terms round alike (the kernels build with --fmad=false) and only
-the window sum's order differs; K2's ok set exactly, samples to 1e-5.
+the window sum's order differs; K2's ok set exactly, samples to 1e-5, in
+both its modes (NCC and view); its reference-window entry equal (the same
+pixels read); M to 1e-4 relative (the kernels sum the particles in the
+plain version's order).
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ from pais_mvs_tpu_torch.models.camera import build_scene
 from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import fitness as TF
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
+from pais_mvs_tpu_torch.tools import microbench_kernel as MB
 
 BIG = 1e20
 KW = dict(patch_radius=5, max_lod=4, particle_num=8, max_iteration=12,
@@ -101,6 +105,60 @@ def test_sampler_kernel_matches_plain(problem, radius):
     np.testing.assert_array_equal(a > -5e8, b > -5e8)
     assert (a > -5e8).mean() > 0.3
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [3, 15, 24])
+def test_sampler_view_kernel_matches_plain(problem, radius):
+    """K2 in its view mode: every particle, margins (2, 3), act and pvalid
+    masks switching rows off."""
+    scene, pb, _, ref, lod, ray, pos = problem
+    cfg = MvsConfig(**{**KW, "patch_radius": radius})
+    H, pt, pvalid = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod,
+                                        ray, pos)
+    act = pb.cam_mask.clone()
+    act[::4, 2] = False
+    args = (scene.pyramids, H, pt, lod, act, pvalid, radius)
+    before = CF.LAUNCHES["sampler_view"]
+    a = TF.warped_samples_view(*args).cpu().numpy()
+    b = CF.warped_samples_view(*args).cpu().numpy()
+    assert CF.LAUNCHES["sampler_view"] == before + 1
+    assert b.shape == (pos.shape[0], scene.num_cameras, pos.shape[1],
+                       (2 * radius + 1) ** 2)
+    np.testing.assert_array_equal(a > -5e8, b > -5e8)
+    assert (a > -5e8).mean() > 0.2
+    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [3, 15])
+@pytest.mark.parametrize("edges", [False, True])
+def test_ref_window_kernel_matches_plain(problem, radius, edges):
+    """The sampler's reference-window entry: nearest lookups of the
+    reference camera, 0 in the rows this rank does not own; equal."""
+    scene, pb, _, ref, lod, ray, pos = problem
+    cfg = MvsConfig(**{**KW, "patch_radius": radius})
+    _, pt, _ = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod, ray,
+                                   pos)
+    own = torch.arange(pt.shape[0], device=pt.device) % 3 != 0
+    args = (scene.pyramids, pt, ref, own, lod, radius, edges)
+    before = CF.LAUNCHES["ref_window"]
+    a = TF.reference_windows(*args).cpu().numpy()
+    b = CF.reference_windows(*args).cpu().numpy()
+    assert CF.LAUNCHES["ref_window"] == before + 1
+    assert b.shape == (1 + edges, *pt.shape[:2], (2 * radius + 1) ** 2)
+    np.testing.assert_array_equal(b, a)
+    assert (a[0] != 0).mean() > 0.2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", MB.VARIANTS)
+def test_microbench_kernels_match_plain(cuda, variant):
+    box = MB.make_box(0, cuda)
+    before = CF.LAUNCHES[f"microbench_{variant}"]
+    got = MB.run_grid(box, variant=variant)
+    assert CF.LAUNCHES[f"microbench_{variant}"] == before + 1
+    assert MB.max_rel_err(got, MB.run_grid_plain(box)) <= 1e-4
 
 
 @pytest.mark.gpu

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where one seed round of the PyTorch port goes on the GPU.
 
-    python3 tools/profile_port_refine.py [--trace PATH]   # needs a CUDA GPU
+    python3 tools/profile_port_refine.py [--view] [--trace PATH]   # GPU
 
 Builds bench.py's workload (5 cameras at 640x480, r=15, 15 particles x 30
 iterations doubled for seeds, B=1024, maxLOD 6) with ``pais_mvs_tpu_torch``,
 runs one ``refine_batch`` round to warm up, then profiles one more round
-with ``torch.profiler`` (CPU + CUDA activities). Prints the round's host
+with ``torch.profiler`` (CPU + CUDA activities). ``--view`` profiles the
+view-sharded round instead (``parallel.sharded.refine_sharded`` in an
+NCCL process group of world size 1, dp=1, vp=1). Prints the round's host
 time, the number of device kernels it ran, the device's busy time (union
 of kernel intervals) and idle share over the round's device span, and the
 kernels by total device time; ``--trace`` also writes the Chrome trace.
@@ -28,6 +30,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write the Chrome trace to this file")
+    ap.add_argument("--view", action="store_true",
+                    help="profile the view-sharded round (world of 1)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import torch
@@ -60,15 +64,33 @@ def main():
         centers, sc.seed_cam_masks[:B], sc.seed_img_points[:B], device=dev))
     CF.build_kernels()
     gen = torch.Generator(device=dev).manual_seed(0)
+    if args.view:
+        import socket
+        from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+        from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+        from pais_mvs_tpu_torch.parallel.sharded import refine_sharded
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        init_distributed(f"tcp://localhost:{port}", 0, 1, backend="nccl")
+        mesh = make_mesh((1, 1))
+        block = scene.view_block(0, 1)
+        one_round = lambda: refine_sharded(block, cfg, pb, 0.005, True, 1,
+                                           mesh.patch, mesh.view, seed=0)
+    else:
+        one_round = lambda: lc.refine_batch(scene, cfg, pb, 0.005, True, 1,
+                                            generator=gen)
 
-    lc.refine_batch(scene, cfg, pb, 0.005, True, 1, generator=gen)
+    one_round()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lc.refine_batch(scene, cfg, pb, 0.005, True, 1, generator=gen)
+        one_round()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+    if args.view:
+        torch.distributed.destroy_process_group()
 
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -90,22 +112,26 @@ def main():
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + (e - s), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    own = {"fitness": 0.0, "sampler": 0.0}
+    own = {"fitness": 0.0, "sampler": 0.0, "sampler_view": 0.0,
+           "ref_window": 0.0}
     for name, (t, _) in by_name.items():
         for k in own:
             if f"{k}_kernel" in name:
                 own[k] += t
 
     print(f"card: {card}")
-    print(f"one seed round, B={B}: host {host_ms:.2f} ms; device span "
+    print(f"one {'view-sharded ' if args.view else ''}seed round, B={B}: "
+          f"host {host_ms:.2f} ms; device span "
           f"{span_us / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, idle share "
           f"{1 - busy / span_us:.3f}; {len(spans)} device activities "
           f"({len(by_name)} distinct)")
     print(f"K1 fitness_kernel {own['fitness'] / 1e3:.2f} ms, K2 "
-          f"sampler_kernel {own['sampler'] / 1e3:.3f} ms, all other device "
-          f"work {(busy - own['fitness'] - own['sampler']) / 1e3:.2f} ms")
+          f"sampler_kernel {own['sampler'] / 1e3:.3f} ms, K2' "
+          f"sampler_view_kernel {own['sampler_view'] / 1e3:.2f} ms, "
+          f"ref_window_kernel {own['ref_window'] / 1e3:.2f} ms, all "
+          f"other device work {(busy - sum(own.values())) / 1e3:.2f} ms")
     print("top device activities by total time (ms, count, name):")
-    for name, (t, n) in top[:15]:
+    for name, (t, n) in top[:20]:
         print(f"  {t / 1e3:9.3f} {n:6d}  {name[:110]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
@@ -115,7 +141,9 @@ def main():
                       "idle_share": 1 - busy / span_us,
                       "device_activities": len(spans),
                       "k1_ms": own["fitness"] / 1e3,
-                      "k2_ms": own["sampler"] / 1e3}))
+                      "k2_ms": own["sampler"] / 1e3,
+                      "k2_view_ms": own["sampler_view"] / 1e3,
+                      "ref_window_ms": own["ref_window"] / 1e3}))
 
 
 if __name__ == "__main__":
