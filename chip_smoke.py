@@ -8,10 +8,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (one ``nvcc`` per source, all started together);
   2. K1 (fused fitness) against its plain PyTorch twin at bench.py's
      selftest shape (256 patches x 16 particles, wide noise) on the
-     synthetic bench scene and the real-photo pawn-rig scene, r in
-     {3, 6, 15, 24}: exact BIG set, |err| <= 1e-4 (relative above 1);
-  3. K2 (warped-window sampler, NCC mode) against its plain twin: same ok
-     set, 1e-5 (relative above 1);
+     synthetic bench scene, the real-photo pawn-rig scene and a 12-camera
+     synthetic rig, r in {3, 6, 15, 24}; P in {1, 7, 30} at r in {3, 15};
+     a third of the swarms inactive, every swarm inactive, no valid
+     particle: exact BIG set, |err| <= 1e-4 (relative above 1);
+  3. K2 (warped-window sampler, NCC mode) against its plain twin on the
+     three scenes, r in {3, 6, 15, 24}, on and off the surface, and with
+     every camera masked: same ok set, 1e-5 (relative above 1);
   4. K2' (the sampler in its view mode: every particle, margins (2, 3),
      act and pvalid masks) against its plain twin at the selftest shape,
      both scenes, r in {3, 6, 15, 24}: same ok set, 1e-5 (relative above
@@ -24,7 +27,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      iterations doubled for seeds, B=1024, maxLOD 6); the launch counts of
      that run (K1 = 61, K2 = 1, K2' = 0), bench.py's quality bar (accepted
      > 50%, median surface distance < 0.003), and refined patches/s timed
-     with CUDA events after a warm-up, with peak device memory;
+     with CUDA events after a warm-up, with peak device memory; K1's
+     inputs of the round's 31st evaluation are kept for phase 14;
   6. the same slice on the card and on the CPU (plain twins) with the same
      PSO draws on a small batch: they must agree;
   7. bench.py's real-photo pawn-rig gate (2 rounds: accepted > 40%,
@@ -48,17 +52,23 @@ Phases, each of which exits non-zero on failure (nothing is caught):
  13. M, the microbench of K1's inner loop
      (``python -m pais_mvs_tpu_torch.tools.microbench_kernel``): both
      variants against the plain twin (1e-4 relative), then their times;
- 14. each kernel's time at the main paths' shapes beside its plain twin's,
-     its roofline bound and, for K2, K2' and the reference windows,
+ 14. each kernel's time at the main paths' shapes (K1 on the round's
+     first evaluation and on its 31st), beside its plain twin's, its
+     roofline bound and, for K2, K2' and the reference windows,
      ``grid_sample`` on the same coordinates; printed as one
-     ``{"kernels": [...]}`` line.
+     ``{"kernels": [...]}`` line. ``ms`` is device time: the timed
+     launches wait behind a ``torch.cuda._sleep`` that outlasts the host's
+     enqueue, so the CUDA events around them bracket device work only;
+     ``host_ms`` is the host's cost per wrapper call; ``plain_ms`` is what
+     the plain twin's caller waits, host time included.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
 
+import functools
 import json
-import multiprocessing as mp
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -86,8 +96,45 @@ K2_OPS_SAMPLE = 29
 REF_OPS_PIXEL = 4
 
 
+def child_pids() -> list:
+    """The processes (zombies included) whose parent is this one, read
+    from /proc."""
+    me, kids = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            kids.append(int(d))
+    return kids
+
+
+def stop_children() -> list:
+    """Kill and reap every child process still there; returns their
+    command lines."""
+    stopped = []
+    for pid in child_pids():
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = "?"
+        try:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+        stopped.append(f"{pid} {cmd.strip()}")
+    return stopped
+
+
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(code)
 
 
@@ -95,8 +142,63 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms() -> float:
+    """The rate of ``torch.cuda._sleep`` on this card (cycles per ms),
+    measured once with CUDA events."""
+    import torch
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles // 10)                           # warm-up
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(cycles)
+    e1.record()
+    e1.synchronize()
+    return cycles / e0.elapsed_time(e1)
+
+
+def time_ms(fn, reps: int, warmup: int = 2):
+    """(device ms, host ms) per call over ``reps`` calls after warm-up.
+
+    The device time is the kernels' own: the calls are enqueued behind a
+    ``torch.cuda._sleep`` that outlasts their enqueue, so the two CUDA
+    events around them bracket back-to-back device work and no host time.
+    The host time is the host clock over the same enqueue: what the
+    wrapper costs the caller per call. If the sleep ended before the host
+    had enqueued every call, the sleep is made longer and the run repeated;
+    it fails if that never holds."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    rate = _sleep_cycles_per_ms()
+    sleep_ms = 5.0
+    for _ in range(3):
+        es, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        h0 = time.perf_counter()
+        es.record()
+        torch.cuda._sleep(int(sleep_ms * rate))
+        t0.record()
+        h1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        h2 = time.perf_counter()
+        t1.record()
+        t1.synchronize()
+        slept = es.elapsed_time(t0)
+        if (h2 - h0) * 1e3 < slept:
+            return t0.elapsed_time(t1) / reps, (h2 - h1) * 1e3 / reps
+        sleep_ms = 2.0 * (h2 - h0) * 1e3 + 5.0
+    fail(f"time_ms: the host's enqueue of {reps} calls outlasted every "
+         f"sleep (last {slept:.1f} ms): the device time would hold host "
+         f"time")
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """ms per call of a plain twin: CUDA events around ``reps`` calls after
+    warm-up. A twin is a long chain of launches, some of which wait on the
+    host, so its time is what the caller waits, host time included."""
     import torch
     for _ in range(warmup):
         fn()
@@ -148,6 +250,59 @@ def touched_atlas_elements(pyrs, H, pt, lod, cam_mask, keep, radius, lo,
     return touched
 
 
+def k1_bound_ms(scene, cfg, H, pt, ref, cam_mask, lod, pvalid, active):
+    """K1's roofline bound on these inputs: (ms, "bytes" or "operations",
+    a description, the kept particles, the atlas elements their bilinear
+    taps read). Operations: the FP32 work of the kept particles
+    (valid and in an active swarm). Bytes: the atlas elements their taps
+    read (bilinear taps inside K1's margins, plus the nearest reference
+    pixel of every window pixel in images and, with the gradient weight,
+    in edges), H and pt of the kept particles, the small inputs whole, the
+    output."""
+    import torch
+    from pais_mvs_tpu_torch.ops import fitness as F
+    B, P, C = H.shape[:3]
+    r = cfg.patch_radius
+    W2 = (2 * r + 1) ** 2
+    keep = pvalid & active[:, None]
+    live = keep.sum(1)                                        # [B]
+    ncam = cam_mask.sum(1)
+    ops = float((live * W2 * (ncam * K1_OPS_SAMPLE + K1_OPS_PIXEL
+                              + (K1_OPS_GRAD if cfg.adaptive_gradient_enable
+                                 else 0))).sum())
+    atlas = scene.pyramids.images
+    kept = keep.reshape(-1)
+    img_t = touched_atlas_elements(
+        scene.pyramids, H.reshape(B * P, C, 3, 3), pt.reshape(B * P, 2),
+        lod.repeat_interleave(P), cam_mask.repeat_interleave(P, 0), kept, r,
+        2.0, 3.0)
+    offs = torch.as_tensor(F.window_offsets(r), device=pt.device)
+    win = pt.reshape(B * P, 1, 2)[kept] + offs                 # [n, W2, 2]
+    Ha, Wa = atlas.shape[1:]
+    lk = lod.repeat_interleave(P)[kept].long()[:, None]
+    xi = torch.round(win[..., 0]).to(torch.int32).clamp(0, Wa - 1).long()
+    yi = (torch.round(win[..., 1]).to(torch.int32).long()
+          + scene.pyramids.yoff[lk]).clamp(0, Ha - 1)
+    ridx = (ref.repeat_interleave(P)[kept].long()[:, None] * (Ha * Wa)
+            + yi * Wa + xi).reshape(-1)
+    ref_t = torch.zeros_like(img_t)
+    ref_t[ridx] = True
+    n_img = int((img_t | ref_t).sum())
+    n_edge = int(ref_t.sum()) if cfg.adaptive_gradient_enable else 0
+    n_kept = int(kept.sum())
+    n_taps = int(img_t.sum())
+    nbytes = float((n_img + n_edge) * atlas.element_size()
+                   + n_kept * (C * 9 + 2) * 4 + pvalid.numel()
+                   + ref.numel() * 4 + lod.numel() * 4 + cam_mask.numel()
+                   + active.numel() + W2 * 4 + B * P * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"{ops:.3e} FP32 ops, {nbytes:.3e} bytes of which atlas {n_img} "
+            f"image + {n_edge} edge elements of {atlas.numel()}, {n_kept} "
+            f"of {B * P} particles kept", n_kept, n_taps)
+
+
 def selftest_inputs(scene, cfg, pb, n, P, seed):
     """bench.py:135-145: n patches x P particles around their prepared
     state with deliberately wide noise (0.3, 0.3 rad; 0.002 depth)."""
@@ -166,12 +321,16 @@ def selftest_inputs(scene, cfg, pb, n, P, seed):
     return sub, ref, lod, ray, pos
 
 
-def check_fitness(label, scene, cfg, ref, mask, lod, ray, pos, active=None):
-    """K1 vs its plain twin on the same inputs; returns max |err|."""
+def check_fitness(label, scene, cfg, ref, mask, lod, ray, pos, active=None,
+                  no_valid=False):
+    """K1 vs its plain twin on the same inputs (``no_valid``: every
+    particle marked invalid); returns max |err|."""
     import torch
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import fitness as F
     H, pt, pvalid = F.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+    if no_valid:
+        pvalid = torch.zeros_like(pvalid)
     args = (scene.pyramids, cfg, H, pt, ref, mask, lod, pvalid, active)
     plain = F.score_windows(*args)
     kern = CF.score_windows(*args)
@@ -209,7 +368,7 @@ def check_sampler(label, scene, cfg, center, normal, ref, mask, lod):
              f"samples")
     err = (kern - plain).abs()[okp]
     m = float(err.max()) if err.numel() else 0.0
-    if m > 1e-5 * max(1.0, float(plain[okp].abs().max())):
+    if m > 0 and m > 1e-5 * max(1.0, float(plain[okp].abs().max())):
         fail(f"K2 {label}: max |err| {m:.3g} over tolerance")
     log(f"K2 {label}: {int(okp.sum())}/{okp.numel()} samples valid, ok set "
         f"equal, max |err| {m:.3g}")
@@ -317,8 +476,10 @@ def timed_rounds(fn, reps: int = 3):
             torch.cuda.max_memory_allocated() / 2 ** 30, out)
 
 
-def vp_worker(rank, world, port, payload, out_dir):
-    """One rank of phase 12: gloo over localhost, all ranks on card 0."""
+def vp_worker(rank, world, port, out_dir):
+    """One rank of phase 12 (``chip_smoke.py --vp-rank RANK WORLD PORT
+    DIR``): gloo over localhost, all ranks on card 0; reads its inputs from
+    DIR/payload.pkl and writes DIR/rank<RANK>.npz."""
     sys.path.insert(0, HERE)
     import torch
     from pais_mvs_tpu_torch.models.camera import build_scene
@@ -328,6 +489,8 @@ def vp_worker(rank, world, port, payload, out_dir):
     from pais_mvs_tpu_torch.parallel.distributed import init_distributed
     from pais_mvs_tpu_torch.parallel.mesh import make_mesh
     from pais_mvs_tpu_torch.parallel.sharded import refine_sharded
+    with open(os.path.join(out_dir, "payload.pkl"), "rb") as f:
+        payload = pickle.load(f)
     dev = init_distributed(f"tcp://localhost:{port}", rank, world,
                            backend="gloo", device="cuda", timeout_s=300)
     mesh = make_mesh((1, world))
@@ -349,25 +512,28 @@ def vp_worker(rank, world, port, payload, out_dir):
 
 
 def run_vp_workers(world, payload, timeout_s=400.0):
-    """Start ``world`` ranks of ``vp_worker``, join them with a deadline,
-    kill them all on expiry; returns each rank's arrays."""
-    ctx = mp.get_context("spawn")
+    """Start ``world`` ranks of ``vp_worker`` as child processes of this
+    script, wait for them with a deadline, kill and reap them all on
+    expiry; returns each rank's arrays."""
     port = free_port()
     with tempfile.TemporaryDirectory() as out_dir:
-        procs = [ctx.Process(target=vp_worker,
-                             args=(r, world, port, payload, out_dir))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
+        with open(os.path.join(out_dir, "payload.pkl"), "wb") as f:
+            pickle.dump(payload, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--vp-rank", str(r),
+             str(world), str(port), out_dir]) for r in range(world)]
         deadline = time.time() + timeout_s
+        try:
+            for p in procs:
+                p.wait(max(0.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
         for p in procs:
-            p.join(max(0.0, deadline - time.time()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
+            if p.poll() is None:
                 p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
+                p.wait()
+        codes = [p.returncode for p in procs]
         if hung or any(c != 0 for c in codes):
             fail(f"vp={world} ranks: still running {hung}, exit codes "
                  f"{codes}")
@@ -453,35 +619,66 @@ def main():
     pb = lc.prepare_seeds(scene, cfg, pm.from_seeds(
         centers, sc.seed_cam_masks[:B], sc.seed_img_points[:B], device=dev))
     Br = (len(rsc.seed_centers) // 8) * 8
+    # a 12-camera rig of the bench scene's kind, for the kernels' camera
+    # loops (K1's first form refused more than 8 cameras)
+    sc12 = make_scene(num_cams=12, width=640, height=480, num_seeds=320,
+                      seed=1)
+    scene12 = build_scene(sc12.params, sc12.images, cfg, device=dev)
+    pb12 = lc.prepare_seeds(scene12, cfg, pm.from_seeds(
+        sc12.seed_centers[:256], sc12.seed_cam_masks[:256],
+        sc12.seed_img_points[:256], device=dev))
+    log(f"12-camera rig: {pb12.capacity} seeds, up to "
+        f"{int(pb12.cam_mask.sum(1).max())} visible cameras")
     rpb = lc.prepare_seeds(rscene, rcfg, pm.from_seeds(
         rsc.seed_centers[:Br], rsc.seed_cam_masks[:Br],
         rsc.seed_img_points[:Br], device=dev))
 
-    # 2. K1 vs plain at the selftest shape, both scenes, four radii
+    # 2. K1 vs plain at the selftest shape (P=16), both scenes and the
+    #    12-camera rig, four radii; P in {1, 7, 30} (one particle, partial
+    #    tiles of 8) at r in {3, 15}; a third of the swarms inactive, all
+    #    inactive, and no valid particle
     err1 = 0.0
     for label, s, c, p in (("synthetic", scene, cfg, pb),
-                           ("realistic", rscene, rcfg, rpb)):
+                           ("realistic", rscene, rcfg, rpb),
+                           ("12-camera", scene12, cfg, pb12)):
         sub, ref, lod, ray, pos = selftest_inputs(s, c, p, 256, 16, 7)
         for r in (3, 6, 15, 24):
             cr = c.replace(patch_radius=r, dist_weighting=r / 3.0)
             err1 = max(err1, check_fitness(f"{label} r={r}", s, cr, ref,
                                            sub.cam_mask, lod, ray, pos)[0])
+        for P_ in (1, 7, 30):
+            pos_p = selftest_inputs(s, c, p, 256, P_, P_)[-1]
+            for r in (3, 15):
+                cr = c.replace(patch_radius=r, dist_weighting=r / 3.0)
+                err1 = max(err1, check_fitness(
+                    f"{label} P={P_} r={r}", s, cr, ref, sub.cam_mask, lod,
+                    ray, pos_p)[0])
         act = torch.arange(sub.capacity, device=dev) % 3 != 0
         err1 = max(err1, check_fitness(f"{label} r={c.patch_radius} active",
                                        s, c, ref, sub.cam_mask, lod, ray,
                                        pos, act)[0])
+        check_fitness(f"{label} all inactive", s, c, ref, sub.cam_mask, lod,
+                      ray, pos, torch.zeros_like(act))
+        check_fitness(f"{label} no valid particle", s, c, ref, sub.cam_mask,
+                      lod, ray, pos, no_valid=True)
 
-    # 3. K2 vs plain: prepared seeds, on and off the surface
+    # 3. K2 vs plain: prepared seeds, on and off the surface, four radii,
+    #    both scenes and the 12-camera rig; every camera masked
     err2 = 0.0
     for label, s, c, p in (("synthetic", scene, cfg, pb),
-                           ("realistic", rscene, rcfg, rpb)):
+                           ("realistic", rscene, rcfg, rpb),
+                           ("12-camera", scene12, cfg, pb12)):
         n = p.normal()
         ref = lc.set_reference_camera(s, n, p.cam_mask)
         lod = lc.set_lod(s, c, p.center, ref)
-        for shift in (0.0, 0.02):
-            err2 = max(err2, check_sampler(
-                f"{label} shift={shift}", s, c, p.center + shift, n, ref,
-                p.cam_mask, lod)[0])
+        for r in (3, 6, 15, 24):
+            for shift in (0.0, 0.02):
+                err2 = max(err2, check_sampler(
+                    f"{label} r={r} shift={shift}", s,
+                    c.replace(patch_radius=r), p.center + shift, n, ref,
+                    p.cam_mask, lod)[0])
+        check_sampler(f"{label} every camera masked", s, c, p.center, n, ref,
+                      torch.zeros_like(p.cam_mask), lod)
 
     # 4. K2' and the reference windows vs plain at the selftest shape, both
     #    scenes, four radii; act switches inactive swarms and one camera of
@@ -505,12 +702,28 @@ def main():
                                               own, lod, r, True))
     del H, pt, pvalid
 
-    # 5. the main path: one seed round at the bench workload
+    # 5. the main path: one seed round at the bench workload; K1's inputs
+    #    of a mid-round PSO evaluation (the 31st of 61) are kept for phase
+    #    14 by a pass-through around the dispatcher
     gen = torch.Generator(device=dev).manual_seed(0)
+    in_loop, score_windows = [], CF.score_windows
+
+    def capture(*args):
+        if len(in_loop) == 30:
+            in_loop.append(args[:2] + tuple(
+                None if t is None else t.clone() for t in args[2:]))
+        else:
+            in_loop.append(None)
+        return score_windows(*args)
+
     torch.cuda.synchronize()
     CF.reset_launch_counts()
+    CF.score_windows = capture
     t0 = time.time()
-    res = lc.refine_batch(scene, cfg, pb, 0.005, True, 1, generator=gen)
+    try:
+        res = lc.refine_batch(scene, cfg, pb, 0.005, True, 1, generator=gen)
+    finally:
+        CF.score_windows = score_windows
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = dict(CF.LAUNCHES)
@@ -706,11 +919,12 @@ def main():
         if not rel <= 1e-4:
             fail(f"M({v}): relative error {rel:.3g} over 1e-4")
         mb[v] = (float((got - mb_plain).abs().max()),
-                 time_ms(lambda: MB.run_grid(box, variant=v), reps=50))
-    mb_plain_ms = time_ms(lambda: MB.run_grid_plain(box), reps=3, warmup=1)
+                 *time_ms(lambda: MB.run_grid(box, variant=v), reps=50))
+    mb_plain_ms = wall_ms(lambda: MB.run_grid_plain(box), reps=3)
     mb_bound, mb_by = MB.bound_ms()
-    log(f"M at {MB.CELLS} cells: (a) {mb['a'][1]:.4f} ms, (b) "
-        f"{mb['b'][1]:.4f} ms, plain {mb_plain_ms:.3f} ms, bound "
+    log(f"M at {MB.CELLS} cells: (a) {mb['a'][1]:.4f} ms (host "
+        f"{mb['a'][2]:.4f}), (b) {mb['b'][1]:.4f} ms (host "
+        f"{mb['b'][2]:.4f}), plain {mb_plain_ms:.3f} ms, bound "
         f"{mb_bound:.4f} ms ({mb_by}); max |err| (a) {mb['a'][0]:.3g}, (b) "
         f"{mb['b'][0]:.3g}; tool launches {mb_launches}")
 
@@ -737,54 +951,28 @@ def main():
         pos, valid)
     err1 = max(err1, err_main)
     k1 = (scene.pyramids, cfg, H, pt, ref, pb.cam_mask, lod, pvalid, valid)
-    k1_ms = time_ms(lambda: CF.score_windows(*k1), reps=20)
-    k1_plain = time_ms(lambda: F.score_windows(*k1), reps=3, warmup=1)
-    W2 = (2 * cfg.patch_radius + 1) ** 2
+    k1_ms, k1_host = time_ms(lambda: CF.score_windows(*k1), reps=20)
+    k1_plain = wall_ms(lambda: F.score_windows(*k1), reps=3)
+    k1_bound, k1_by, k1_what, n_kept, n_k2v = k1_bound_ms(scene, *k1[1:])
+    log(f"K1 at B={B} P={P} r={cfg.patch_radius}, first evaluation: "
+        f"{k1_ms:.4f} ms/launch on the device, {k1_host:.4f} ms host per "
+        f"call, plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}: "
+        f"{k1_what})")
+    #    K1 on the inputs of the round's 31st evaluation (phase 5)
+    k1l = in_loop[30]
+    err1 = max(err1, compare_fitness(
+        "K1 in-loop (evaluation 31 of 61) vs plain", CF.score_windows(*k1l),
+        torch.where(k1l[-1][:, None], F.score_windows(*k1l), 1e30)))
+    k1l_ms, k1l_host = time_ms(lambda: CF.score_windows(*k1l), reps=20)
+    k1l_bound, k1l_by, k1l_what = k1_bound_ms(scene, *k1l[1:])[:3]
+    log(f"K1 in-loop: {k1l_ms:.4f} ms/launch on the device, {k1l_host:.4f} "
+        f"ms host per call, bound {k1l_bound:.4f} ms ({k1l_by}: {k1l_what}); "
+        f"x61 per round = {61 * k1_ms:.2f} (first) to {61 * k1l_ms:.2f} "
+        f"(in-loop) ms of the {round_ms:.2f} ms round")
     C = scene.num_cameras
-    live = (pvalid & valid[:, None]).sum(1)                    # [B]
-    ncam = pb.cam_mask.sum(1)
-    k1_ops = float((live * W2 * (ncam * K1_OPS_SAMPLE + K1_OPS_PIXEL
-                                 + (K1_OPS_GRAD if
-                                    cfg.adaptive_gradient_enable else 0))
-                    ).sum())
-    #    bytes: the atlas elements the kept particles' taps read (bilinear
-    #    taps inside K1's margins, plus the nearest reference pixel of every
-    #    window pixel in images and, with the gradient weight, in edges),
-    #    H and pt of the kept particles, the small inputs whole, the output
+    W2 = (2 * cfg.patch_radius + 1) ** 2
     atlas = scene.pyramids.images
-    kept = (pvalid & valid[:, None]).reshape(-1)
-    img_t = touched_atlas_elements(
-        scene.pyramids, H.reshape(B * P, C, 3, 3), pt.reshape(B * P, 2),
-        lod.repeat_interleave(P), pb.cam_mask.repeat_interleave(P, 0), kept,
-        cfg.patch_radius, 2.0, 3.0)
-    offs = torch.as_tensor(F.window_offsets(cfg.patch_radius), device=dev)
-    win = pt.reshape(B * P, 1, 2)[kept] + offs                 # [n, W2, 2]
     Ha, Wa = atlas.shape[1:]
-    lk = lod.repeat_interleave(P)[kept].long()[:, None]
-    xi = torch.round(win[..., 0]).to(torch.int32).clamp(0, Wa - 1).long()
-    yi = (torch.round(win[..., 1]).to(torch.int32).long()
-          + scene.pyramids.yoff[lk]).clamp(0, Ha - 1)
-    ridx = (ref.repeat_interleave(P)[kept].long()[:, None] * (Ha * Wa)
-            + yi * Wa + xi).reshape(-1)
-    ref_t = torch.zeros_like(img_t)
-    ref_t[ridx] = True
-    n_img = int((img_t | ref_t).sum())
-    n_edge = int(ref_t.sum()) if cfg.adaptive_gradient_enable else 0
-    n_kept = int(kept.sum())
-    k1_bytes = float((n_img + n_edge) * atlas.element_size()
-                     + n_kept * (C * 9 + 2) * 4 + pvalid.numel()
-                     + ref.numel() * 4 + lod.numel() * 4
-                     + pb.cam_mask.numel() + valid.numel() + W2 * 4
-                     + B * P * 4)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
-    k1_by = ("bytes" if k1_bytes / HBM_BYTES_PER_S
-             >= k1_ops / FP32_OPS_PER_S else "operations")
-    log(f"K1 at B={B} P={P} r={cfg.patch_radius}: {k1_ms:.4f} ms/launch, "
-        f"plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}: "
-        f"{k1_ops:.3e} FP32 ops, {k1_bytes:.3e} bytes of which atlas "
-        f"{n_img} image + {n_edge} edge elements of {atlas.numel()}, "
-        f"{n_kept} of {B * P} particles kept); x61 per round = "
-        f"{61 * k1_ms:.2f} ms of the {round_ms:.2f} ms round")
 
     #    K2: the round's NCC pruning call, on the round's output patches
     ob = res.batch
@@ -794,8 +982,8 @@ def main():
     err2 = max(err2, err_main2)
     r = cfg.patch_radius
     k2 = (scene.pyramids, H2, pt2, ob.lod, ob.cam_mask, r)
-    k2_ms = time_ms(lambda: CF.warped_samples(*k2), reps=50)
-    k2_plain = time_ms(lambda: F.warped_samples(*k2), reps=5, warmup=1)
+    k2_ms, k2_host = time_ms(lambda: CF.warped_samples(*k2), reps=50)
+    k2_plain = wall_ms(lambda: F.warped_samples(*k2), reps=5)
     k2_ops = float(int(ob.cam_mask.sum()) * W2 * K2_OPS_SAMPLE)
     #    bytes: the distinct atlas elements the in-margin taps read, the
     #    small inputs whole, the [B, C, W2] f32 output written once
@@ -823,11 +1011,12 @@ def main():
     grid = torch.stack([uu / (Wa - 1) * 2 - 1, vv / (Ha - 1) * 2 - 1],
                        -1).permute(2, 0, 1, 3).contiguous()   # [C,B,W2,2]
     img = atlas.float()[:, None]
-    lib_ms = time_ms(lambda: TNF.grid_sample(
+    lib_ms, lib_host = time_ms(lambda: TNF.grid_sample(
         img, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), reps=50)
-    log(f"K2 at B={B} r={r}: {k2_ms:.4f} ms/launch, plain {k2_plain:.3f} ms"
-        f", grid_sample {lib_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}: "
+    log(f"K2 at B={B} r={r}: {k2_ms:.4f} ms/launch on the device, "
+        f"{k2_host:.4f} ms host per call, plain {k2_plain:.3f} ms, "
+        f"grid_sample {lib_ms:.4f} ms (host {lib_host:.4f}), bound {k2_bound:.4f} ms ({k2_by}: "
         f"{k2_bytes:.3e} bytes of which atlas {n_k2} elements of "
         f"{atlas.numel()}, {k2_ops:.3e} FP32 ops)")
     del grid, uu, vv, w, sw
@@ -839,16 +1028,15 @@ def main():
     k2v = (scene.pyramids, H, pt, lod, act, pvalid, r)
     err2v = max(err2v, check_sampler_view(f"main shape B={B} P={P}", scene,
                                           cfg, H, pt, lod, act, pvalid))
-    k2v_ms = time_ms(lambda: CF.warped_samples_view(*k2v), reps=20)
-    k2v_plain = time_ms(lambda: F.warped_samples_view(*k2v), reps=3,
-                        warmup=1)
+    k2v_ms, k2v_host = time_ms(lambda: CF.warped_samples_view(*k2v),
+                               reps=20)
+    k2v_plain = wall_ms(lambda: F.warped_samples_view(*k2v), reps=3)
     k2v_ops = float(int((act[:, :, None] & pvalid[:, None, :]).sum())
                     * W2 * K2_OPS_SAMPLE)
     #    bytes: the atlas elements the computed samples' taps read (K1's
-    #    in-margin image taps above: the same particles, cameras and
-    #    margins), H and pt of the kept particles, the small inputs whole,
-    #    the [B, C, P, W2] f32 output written once
-    n_k2v = int(img_t.sum())
+    #    in-margin image taps above, n_k2v: the same particles, cameras
+    #    and margins), H and pt of the kept particles, the small inputs
+    #    whole, the [B, C, P, W2] f32 output written once
     k2v_bytes = float(n_k2v * atlas.element_size() + n_kept * (C * 9 + 2) * 4
                       + B * 4 + act.numel() + pvalid.numel()
                       + B * C * P * W2 * 4)
@@ -869,11 +1057,12 @@ def main():
                        -1).permute(3, 0, 1, 2, 4).reshape(
                            C, B * P, W2, 2).contiguous()       # [C,BP,W2,2]
     del win, x, y, Hc, w, sw, uu, vv
-    lib_v_ms = time_ms(lambda: TNF.grid_sample(
+    lib_v_ms, lib_v_host = time_ms(lambda: TNF.grid_sample(
         img, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), reps=20)
-    log(f"K2' at B={B} P={P} r={r}: {k2v_ms:.4f} ms/launch, plain "
-        f"{k2v_plain:.3f} ms, grid_sample {lib_v_ms:.4f} ms, bound "
+    log(f"K2' at B={B} P={P} r={r}: {k2v_ms:.4f} ms/launch on the device, "
+        f"{k2v_host:.4f} ms host per call, plain {k2v_plain:.3f} ms, "
+        f"grid_sample {lib_v_ms:.4f} ms (host {lib_v_host:.4f}), bound "
         f"{k2v_bound:.4f} ms ({k2v_by}: {k2v_bytes:.3e} bytes of which the "
         f"output {B * C * P * W2 * 4:.3e} and atlas {n_k2v} elements, "
         f"{k2v_ops:.3e} FP32 ops); x61 per view round = "
@@ -889,8 +1078,8 @@ def main():
     kw = (scene.pyramids, pt, ref, own, lod, r, grad)
     errw = max(errw, check_ref_window(f"main shape B={B} P={P}", scene, pt,
                                       ref, own, lod, r, grad))
-    kw_ms = time_ms(lambda: CF.reference_windows(*kw), reps=50)
-    kw_plain = time_ms(lambda: F.reference_windows(*kw), reps=5, warmup=1)
+    kw_ms, kw_host = time_ms(lambda: CF.reference_windows(*kw), reps=50)
+    kw_plain = wall_ms(lambda: F.reference_windows(*kw), reps=5)
     #    bytes: the distinct atlas elements the lookups read (every row:
     #    the kernel reads invalid particles' windows too), pt and the small
     #    inputs, the [n, B, P, W2] f32 output written once
@@ -917,12 +1106,13 @@ def main():
                         gy / (C * Ha - 1) * 2 - 1], -1).reshape(
                             1, B * P, W2, 2)
     del win, gy
-    lib_w_ms = time_ms(lambda: TNF.grid_sample(
+    lib_w_ms, lib_w_host = time_ms(lambda: TNF.grid_sample(
         stack, grid, mode="nearest", padding_mode="zeros",
         align_corners=True), reps=50)
     log(f"reference window at B={B} P={P} r={r} ({nplanes} plane(s)): "
-        f"{kw_ms:.4f} ms/launch, plain {kw_plain:.3f} ms, grid_sample "
-        f"{lib_w_ms:.4f} ms, bound {kw_bound:.4f} ms ({kw_by}: "
+        f"{kw_ms:.4f} ms/launch on the device, {kw_host:.4f} ms host per "
+        f"call, plain {kw_plain:.3f} ms, grid_sample {lib_w_ms:.4f} ms "
+        f"(host {lib_w_host:.4f}), bound {kw_bound:.4f} ms ({kw_by}: "
         f"{kw_bytes:.3e} bytes of which atlas {n_ref} elements, "
         f"{kw_ops:.3e} FP32 ops); x61 per view round = {61 * kw_ms:.2f} ms")
     del stack, grid
@@ -933,33 +1123,36 @@ def main():
          "source": "pais_mvs_tpu_torch/csrc/fitness.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:552",
          "launches": launches["fitness"], "max_abs_err": err1,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
+         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None},
         {"name": "warped_sampler", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
          "launches": launches["sampler"], "max_abs_err": err2,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
+         "ms": k2_ms, "host_ms": k2_host, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "warped_sampler_view", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
          "launches": vlaunches["sampler_view"], "max_abs_err": err2v,
-         "ms": k2v_ms, "plain_ms": k2v_plain, "bound_ms": k2v_bound,
+         "ms": k2v_ms, "host_ms": k2v_host, "plain_ms": k2v_plain, "bound_ms": k2v_bound,
          "bound_by": k2v_by, "library_ms": lib_v_ms},
         {"name": "reference_window", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
          "launches": vlaunches["ref_window"], "max_abs_err": errw,
-         "ms": kw_ms, "plain_ms": kw_plain, "bound_ms": kw_bound,
+         "ms": kw_ms, "host_ms": kw_host, "plain_ms": kw_plain, "bound_ms": kw_bound,
          "bound_by": kw_by, "library_ms": lib_w_ms},
     ] + [
         {"name": f"microbench_{v}", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/microbench.cu",
          "replaces": "tools/microbench_kernel.py:52",
          "launches": mb_launches[f"microbench_{v}"], "max_abs_err": mb[v][0],
-         "ms": mb[v][1], "plain_ms": mb_plain_ms, "bound_ms": mb_bound,
+         "ms": mb[v][1], "host_ms": mb[v][2], "plain_ms": mb_plain_ms, "bound_ms": mb_bound,
          "bound_by": mb_by, "library_ms": None} for v in MB.VARIANTS]
+    for line in stop_children():
+        log(f"stopped a child process left running: {line}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -969,4 +1162,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--vp-rank"]:
+        vp_worker(*map(int, sys.argv[2:5]), sys.argv[5])
+    else:
+        main()

@@ -18,38 +18,68 @@
 // computed by the wrapper), the swarm is inactive, or sum(w) = 0.
 //
 // What bounds it on this card: neither HBM nor the FP32 pipes at the
-// bench shape. The inputs (two bf16 atlases of a few MB each, H at
-// B*P*C*9 floats) are read once from HBM and then live in the 50 MB L2;
-// the work is ~C*4 dependent 2-byte gathers per window pixel, so the
-// kernel is bound by L1/L2 gather latency and load throughput. Its
-// roofline bound (computed in chip_smoke.py) is the FP32 operation count.
+// bench shape. The atlases (a few MB of bf16) are read once from HBM and
+// then live in the 50 MB L2; each window pixel costs, per visible camera,
+// a homography, two IEEE divisions, four 2-byte gathers and the blend:
+// some 90 instructions a sample, counted from the source. So the kernel
+// is bound by instruction issue and the latency of the gathers behind it;
+// its roofline bound (computed in chip_smoke.py) is the FP32 operation
+// count. On the H100 at the bench shape it takes 0.44 ms on the round's
+// first evaluation, 11x that bound, against 1.44 ms for the first form of
+// this kernel (one 256-thread block per particle, threads along the
+// window's y axis, 145 registers); PERF.md has the measurements.
 //
-// Design, right first and simple: one block per (b, p); threads stride
-// over the window pixels; the camera loop runs in registers (the per-camera
-// samples stay in a register array of kMaxCams = 8, which every rig this
-// port drives fits; a larger rig is refused, not truncated); taps are read
-// straight from global memory, which
-// L1/L2 serve (no TPU-style box staging, so no coverage limit and no
-// radius ceiling). One block reduction gives sum(w), sum(w*SAD) and the
-// kill flag. Inactive swarms and invalid particles exit before any load.
+// Design, occupancy first:
+//  * one warp per particle, kWarps = 8 particles of one patch per block
+//    (grid B x ceil(P/8)); block t scores the patch's valid particles of
+//    rank 8t .. 8t+7 (compacted in the preamble), so invalid particles
+//    leave no warp idle, and writes BIG for the invalid ones of its index
+//    range; a block whose swarm is inactive writes BIG before any load;
+//  * a preamble loads the patch-level data once into shared memory: the
+//    visible cameras compacted in camera order (index and LOD-band
+//    limits), the valid particles' ranks and the Gaussian table; then one
+//    block barrier, the only one. Each warp then packs its particle's
+//    homographies of the visible cameras into 48-byte records (h[9], u and
+//    v limits, camera), read back with three broadcast 16-byte loads per
+//    camera and pixel;
+//  * the samples of one pixel's visible cameras go to shared memory,
+//    laid out [camera][thread] (bank-conflict free), not to a register
+//    array: ptxas -v reports 54 registers and no spills (launch bound: 4
+//    blocks of 8 warps, 32 warps resident per SM), and there is no camera
+//    ceiling. The wrapper refuses only a rig whose records and samples
+//    exceed the shared memory one block can take (fitness_smem_bytes);
+//  * lanes take the window's x offsets and each warp steps over its y
+//    offsets: 32 lanes at r >= 8 (W > 32 loops over chunks of 32), 16 or
+//    8 lanes and 2 or 4 y offsets a step for smaller windows, so there is
+//    no per-pixel integer division, and a warp's four taps of a camera
+//    fall on neighbouring atlas elements of two image rows (a few 32-byte
+//    sectors per load; lanes along y, the table's contiguous axis, touch
+//    32 image rows, which cost the first form most of its time);
+//  * the camera loop is not unrolled: unrolling it by two measured slower;
+//  * no block reduction: each warp sums sum(w) and sum(w*SAD) with
+//    shuffles, and stops as soon as __any_sync sees a killed pixel;
+//  * taps read through the read-only path (__ldg) from L1/L2: no box
+//    staging, so no coverage limit and no radius ceiling.
 //
 // Arithmetic is written in the jnp reference's operation order and built
-// with --fmad=false, so every per-pixel value rounds as the plain version
-// does on the card; only the window sum's order differs (~1e-6 relative).
+// with --fmad=false; the per-camera sums run in camera order, so every
+// per-pixel value rounds as the plain version does on the card; only the
+// window sum's order differs (~1e-6 relative).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kBig = 1e30f;
-constexpr int kThreads = 256;
-constexpr int kMaxCams = 8;
+constexpr int kWarps = 8;                // particles per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRec = 12;                 // floats per camera record
 
-__device__ __forceinline__ float tap(const __nv_bfloat16* __restrict__ a,
-                                     long i) {
-  return __bfloat162float(a[i]);
+__device__ __forceinline__ float tap(const uint16_t* __restrict__ a,
+                                     long long i) {
+  // bf16 -> f32 is the bits shifted into the high half
+  return __uint_as_float((unsigned)__ldg(a + i) << 16);
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -57,139 +87,199 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) fitness_kernel(
-    const __nv_bfloat16* __restrict__ images,
-    const __nv_bfloat16* __restrict__ edges, const int* __restrict__ dims,
-    const int* __restrict__ yoff, int C, int L, int Ha, int Wa,
-    const float* __restrict__ H, const float* __restrict__ pt,
+__global__ void __launch_bounds__(kThreads, 4) fitness_kernel(
+    const uint16_t* __restrict__ images, const uint16_t* __restrict__ edges,
+    const int* __restrict__ dims, const int* __restrict__ yoff, int C, int L,
+    int Ha, int Wa, const float* __restrict__ H, const float* __restrict__ pt,
     const int* __restrict__ ref_cam, const int* __restrict__ lod,
     const uint8_t* __restrict__ cam_mask, const uint8_t* __restrict__ pvalid,
     const uint8_t* __restrict__ active, const float* __restrict__ wtable,
-    int P, int radius, int use_dist, int use_diff, float diff_w,
-    int use_grad, float grad_w, float* __restrict__ out) {
-  const long bp = blockIdx.x;  // b * P + p
-  const int b = (int)(bp / P);
-  if (!pvalid[bp] || (active != nullptr && !active[b])) {
-    if (threadIdx.x == 0) out[bp] = kBig;
+    int P, int radius, int lpr_shift, int use_dist, int use_diff,
+    float diff_w, int use_grad, float grad_w, float* __restrict__ out) {
+  // shared: records [kWarps][C][kRec] | samples [C][kThreads] |
+  //         limits [C][2] | cameras [C] | table [W2]
+  extern __shared__ float4 smem4[];
+  float* s_rec = reinterpret_cast<float*>(smem4);
+  float* s_val = s_rec + kWarps * C * kRec;
+  float* s_lim = s_val + C * kThreads;
+  int* s_cam = reinterpret_cast<int*>(s_lim + 2 * C);
+  float* s_tab = reinterpret_cast<float*>(s_cam + C);
+  __shared__ int s_nvis, s_npart, s_part[kWarps];
+
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.y * kWarps;          // this block's tile of P
+  if (active != nullptr && !active[b]) {       // the same for the block
+    if (lane == 0 && t0 + warp < P) out[(long long)b * P + t0 + warp] = kBig;
     return;
   }
-
-  __shared__ float sH[kMaxCams * 9];
-  __shared__ float s_h[kMaxCams], s_w[kMaxCams];
-  __shared__ int s_m[kMaxCams];
-  __shared__ float red_w[kThreads / 32], red_ws[kThreads / 32];
-
   const int l = lod[b];
-  for (int i = threadIdx.x; i < C * 9; i += blockDim.x)
-    sH[i] = H[bp * C * 9 + i];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    s_h[c] = (float)dims[(c * L + l) * 2 + 0];
-    s_w[c] = (float)dims[(c * L + l) * 2 + 1];
-    s_m[c] = cam_mask[(long)b * C + c] != 0;
-  }
-  __syncthreads();
-
-  int ncam = 0;
-  for (int c = 0; c < C; ++c) ncam += s_m[c];
-  const float cn = (float)ncam;
-
   const int W = 2 * radius + 1;
   const int W2 = W * W;
+  const unsigned below = (1u << lane) - 1u;
+
+  // preamble: warp 0 compacts the visible cameras in camera order, warp 1
+  // the patch's valid particles in particle order; this block scores the
+  // valid particles of rank t0 .. t0 + 7, one per warp, so a tile's warps
+  // are not left idle by invalid particles
+  if (warp == 0) {
+    int n = 0;
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      const int c = c0 + lane;
+      const bool vis = c < C && cam_mask[(long long)b * C + c] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, vis);
+      if (vis) {
+        const int k = n + __popc(m & below);
+        s_cam[k] = c;
+        // valid iff 2 <= u < wid - 3 and 2 <= v < hgt - 3
+        s_lim[2 * k + 0] = (float)dims[(c * L + l) * 2 + 1] - 3.f;
+        s_lim[2 * k + 1] = (float)dims[(c * L + l) * 2 + 0] - 3.f;
+      }
+      n += __popc(m);
+    }
+    if (lane == 0) s_nvis = n;
+  } else if (warp == 1) {
+    int n = 0;
+    for (int p0 = 0; p0 < P; p0 += 32) {
+      const int pp = p0 + lane;
+      const bool v = pp < P && pvalid[(long long)b * P + pp] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, v);
+      const int rank = n + __popc(m & below) - t0;
+      if (v && rank >= 0 && rank < kWarps) s_part[rank] = pp;
+      n += __popc(m);
+    }
+    if (lane == 0) s_npart = min(max(n - t0, 0), kWarps);
+  }
+  if (use_dist)
+    for (int k = threadIdx.x; k < W2; k += kThreads) s_tab[k] = wtable[k];
+  __syncthreads();
+
+  // BIG for the invalid particles of this block's tile
+  if (lane == 0 && t0 + warp < P &&
+      !pvalid[(long long)b * P + t0 + warp])
+    out[(long long)b * P + t0 + warp] = kBig;
+  if (warp >= s_npart) return;
+  const int p = s_part[warp];
+  const long long bp = (long long)b * P + p;
+  const int nvis = s_nvis;
+  // this particle's records: h[0..8], u limit, v limit, camera
+  float* rec = s_rec + warp * C * kRec;
+  for (int e = lane; e < nvis * kRec; e += 32) {
+    const int k = e / kRec, f = e - k * kRec;
+    const int c = s_cam[k];
+    rec[e] = f < 9 ? H[(bp * C + c) * 9 + f]
+                   : (f < 11 ? s_lim[2 * k + f - 9] : __int_as_float(c));
+  }
+  __syncwarp();
+
+  const float cn = (float)nvis;
   const float px = pt[bp * 2 + 0];
   const float py = pt[bp * 2 + 1];
   const int yo = yoff[l];
-  const long plane = (long)Ha * Wa;
-  const long ref_base = (long)ref_cam[b] * plane;
+  const long long plane = (long long)Ha * Wa;
+  const long long ref_base = (long long)ref_cam[b] * plane;
+  const int lpr = 1 << lpr_shift;              // lanes per x chunk
+  const int col = lane & (lpr - 1);
+  const int sub = lane >> lpr_shift;           // y offset within a step
+  const int rps = 32 >> lpr_shift;             // y offsets per step
+  float* my_val = s_val + threadIdx.x;         // my_val[k * kThreads]
+  const float4* rec4 = reinterpret_cast<const float4*>(rec);
 
   float acc_w = 0.f, acc_ws = 0.f;
-  int bad = 0;
-  for (int k = threadIdx.x; k < W2; k += blockDim.x) {
-    // offset k is (dx, dy) = (k / W - r, k % W - r): x-major, as
-    // window_offsets orders the table
-    const float x = px + (float)(k / W - radius);
-    const float y = py + (float)(k % W - radius);
+  bool bad = false;
+  for (int i0 = 0; i0 < W; i0 += lpr) {
+    // window offset (dx, dy) = (i - r, j - r), table index i * W + j
+    // (x-major, as window_offsets orders it); lanes along x, so a warp's
+    // taps fall on neighbouring atlas elements of one image row
+    const int i = i0 + col;
+    const float x = px + (float)(i - radius);
+    for (int j0 = 0; j0 < W; j0 += rps) {
+      const int j = j0 + sub;
+      if (i < W && j < W) {
+        const float y = py + (float)(j - radius);
 
-    // nearest reference pixel: background test and edge strength
-    const int xi = clampi((int)rintf(x), 0, Wa - 1);
-    const int yi = clampi((int)rintf(y) + yo, 0, Ha - 1);
-    const long ridx = ref_base + (long)yi * Wa + xi;
-    const bool fg = tap(images, ridx) != 0.f;
+        // nearest reference pixel: background test and edge strength
+        const int xi = clampi((int)rintf(x), 0, Wa - 1);
+        const int yi = clampi((int)rintf(y) + yo, 0, Ha - 1);
+        const long long ridx = ref_base + (long long)yi * Wa + xi;
+        const bool fg = tap(images, ridx) != 0.f;
 
-    float vals[kMaxCams];
-    float sum = 0.f;
-    bool pix_ok = true;
-#pragma unroll
-    for (int c = 0; c < kMaxCams; ++c) {
-      vals[c] = 0.f;
-      if (c < C && s_m[c]) {
-        const float* h = sH + c * 9;
-        const float hw = h[6] * x + h[7] * y + h[8];
-        const float sw = hw == 0.f ? 1.f : hw;
-        const float u = (h[0] * x + h[1] * y + h[2]) / sw;
-        const float v = (h[3] * x + h[4] * y + h[5]) / sw;
-        const bool ok = (u >= 2.f) & (u < s_w[c] - 3.f) & (v >= 2.f) &
-                        (v < s_h[c] - 3.f) & isfinite(u) & isfinite(v) &
-                        (hw != 0.f);
-        const float x0 = floorf(u), y0 = floorf(v);
-        const float fx = u - x0, fy = v - y0;
-        const int x0i = clampi((int)x0, 0, Wa - 2);
-        const int y0i = clampi((int)y0 + yo, 0, Ha - 2);
-        const long i00 = c * plane + (long)y0i * Wa + x0i;
-        const float val = tap(images, i00) * (1.f - fx) * (1.f - fy) +
-                          tap(images, i00 + 1) * fx * (1.f - fy) +
-                          tap(images, i00 + Wa) * (1.f - fx) * fy +
-                          tap(images, i00 + Wa + 1) * fx * fy;
-        vals[c] = val;
-        sum += val;
-        pix_ok &= ok;
+        float sum = 0.f;
+        bool pix_ok = true;
+#pragma unroll 1
+        for (int k = 0; k < nvis; ++k) {
+          const float4 ra = rec4[k * 3 + 0];   // h0 h1 h2 h3
+          const float4 rb = rec4[k * 3 + 1];   // h4 h5 h6 h7
+          const float4 rc = rec4[k * 3 + 2];   // h8 umax vmax cam
+          const float hw = rb.z * x + rb.w * y + rc.x;
+          const float sw = hw == 0.f ? 1.f : hw;
+          const float u = (ra.x * x + ra.y * y + ra.z) / sw;
+          const float v = (ra.w * x + rb.x * y + rb.y) / sw;
+          // (NaN and +-inf fail the bounds: no isfinite test needed)
+          const bool ok = (u >= 2.f) & (u < rc.y) & (v >= 2.f) &
+                          (v < rc.z) & (hw != 0.f);
+          const float x0 = floorf(u), y0 = floorf(v);
+          const float fx = u - x0, fy = v - y0;
+          const int x0i = clampi((int)x0, 0, Wa - 2);
+          const int y0i = clampi((int)y0 + yo, 0, Ha - 2);
+          const long long i00 = (long long)__float_as_int(rc.w) * plane +
+                                (long long)y0i * Wa + x0i;
+          const float t00 = tap(images, i00);
+          const float t01 = tap(images, i00 + 1);
+          const float t10 = tap(images, i00 + Wa);
+          const float t11 = tap(images, i00 + Wa + 1);
+          const float val = t00 * (1.f - fx) * (1.f - fy) +
+                            t01 * fx * (1.f - fy) +
+                            t10 * (1.f - fx) * fy + t11 * fx * fy;
+          my_val[k * kThreads] = val;
+          sum += val;
+          pix_ok &= ok;
+        }
+        const float mean = sum / cn;
+        float sad = 0.f;
+        for (int k = 0; k < nvis; ++k)
+          sad += fabsf(my_val[k * kThreads] - mean);
+        sad = sad / cn;
+
+        float wgt = use_dist ? s_tab[i * W + j] : 1.f;
+        if (use_diff) wgt = wgt * expf(-sad * sad / diff_w);
+        if (use_grad) {
+          const float e = fmaxf(tap(edges, ridx) * grad_w, 1e-20f);
+          wgt = wgt * expf(-1.f / e);
+        }
+        const float wfg = wgt * (fg ? 1.f : 0.f);
+        acc_w += wfg;
+        acc_ws += wfg * sad;
+        bad |= (fg && !pix_ok);
+      }
+      // a killed foreground pixel makes the particle BIG: stop early
+      if (__any_sync(0xffffffffu, bad)) {
+        if (lane == 0) out[bp] = kBig;
+        return;
       }
     }
-    const float mean = sum / cn;
-    float sad = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCams; ++c)
-      if (c < C && s_m[c]) sad += fabsf(vals[c] - mean);
-    sad = sad / cn;
-
-    float wgt = use_dist ? wtable[k] : 1.f;
-    if (use_diff) wgt = wgt * expf(-sad * sad / diff_w);
-    if (use_grad) {
-      const float e = fmaxf(tap(edges, ridx) * grad_w, 1e-20f);
-      wgt = wgt * expf(-1.f / e);
-    }
-    const float wfg = wgt * (fg ? 1.f : 0.f);
-    acc_w += wfg;
-    acc_ws += wfg * sad;
-    bad |= (fg && !pix_ok);
   }
-
-  bad = __syncthreads_or(bad);
   acc_w = warp_sum(acc_w);
   acc_ws = warp_sum(acc_ws);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red_w[warp] = acc_w;
-    red_ws[warp] = acc_ws;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sw = 0.f, sws = 0.f;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
-      sw += red_w[i];
-      sws += red_ws[i];
-    }
-    out[bp] = (!bad && sw > 0.f) ? sws / sw : kBig;
-  }
+  if (lane == 0) out[bp] = acc_w > 0.f ? acc_ws / acc_w : kBig;
+}
+
+// Dynamic shared memory of one block: the records and samples of C
+// cameras and the W2-entry table (ops/cuda_fitness.py::fitness_smem_bytes
+// computes the same to refuse a rig before the launch).
+long long fitness_smem_bytes(int C, int radius) {
+  const long long W = 2 * radius + 1;
+  return ((long long)kWarps * kRec + kThreads + 3) * 4 * C + 4 * W * W;
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported camera count).
+// C entry, bound with ctypes. Returns cudaGetLastError() after the launch,
+// or the error of raising the block's shared-memory limit.
 extern "C" int pais_fitness(const void* images, const void* edges,
                             const int* dims, const int* yoff, int C, int L,
                             int Ha, int Wa, const float* H, const float* pt,
@@ -199,13 +289,21 @@ extern "C" int pais_fitness(const void* images, const void* edges,
                             int P, int radius, int use_dist, int use_diff,
                             float diff_w, int use_grad, float grad_w,
                             float* out, void* stream) {
-  if (B * P == 0) return 0;
-  if (C > kMaxCams) return (int)cudaErrorInvalidValue;
-  fitness_kernel<<<(unsigned)((long)B * P), kThreads, 0,
-                   (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)images, (const __nv_bfloat16*)edges, dims, yoff,
-      C, L, Ha, Wa, H, pt, ref_cam, lod, cam_mask, pvalid, active, wtable, P,
-      radius, use_dist, use_diff, diff_w, use_grad, grad_w, out);
+  if ((long long)B * P == 0) return 0;
+  const long long smem = fitness_smem_bytes(C, radius);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fitness_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int W = 2 * radius + 1;
+  const int lpr_shift = W <= 8 ? 3 : (W <= 16 ? 4 : 5);
+  const dim3 grid((unsigned)B, (unsigned)((P + kWarps - 1) / kWarps));
+  fitness_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const uint16_t*)images, (const uint16_t*)edges, dims, yoff, C, L, Ha,
+      Wa, H, pt, ref_cam, lod, cam_mask, pvalid, active, wtable, P, radius,
+      lpr_shift, use_dist, use_diff, diff_w, use_grad, grad_w, out);
   return (int)cudaGetLastError();
 }
 

@@ -53,7 +53,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 SOURCES = {"fitness": "fitness.cu", "sampler": "sampler.cu",
            "microbench": "microbench.cu"}
-MAX_CAMERAS = 8           # fitness.cu's per-pixel register array (kMaxCams)
+# the dynamic shared memory one block may take on sm_90 (227 KB)
+SMEM_PER_BLOCK = 232448
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source, argument types); the C symbol is pais_<entry>
@@ -123,12 +124,19 @@ def build_kernels(sources=None) -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     logs = {}
-    for source, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES[source]}:\n{log}")
-        os.replace(tmp, out)         # atomic: a concurrent loader never sees
-        logs[source] = log           # a half-written library
+    try:
+        for source, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {SOURCES[source]}:\n{log}")
+            os.replace(tmp, out)     # atomic: a concurrent loader never sees
+            logs[source] = log       # a half-written library
+    finally:                         # on failure, stop the other compiles
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     for entry, (source, argtypes) in ENTRIES.items():
         if source not in sources:
             continue
@@ -141,6 +149,14 @@ def build_kernels(sources=None) -> dict:
         err.restype = ctypes.c_char_p
         _LIBS[entry] = (fn, err)
     return logs
+
+
+def fitness_smem_bytes(num_cameras: int, radius: int) -> int:
+    """The shared memory of one block of the fitness kernel: 8 particles'
+    records of each camera (12 floats), one sample per camera and thread
+    (256 threads), each camera's limits and index, and the distance table
+    (as ``fitness_smem_bytes`` in csrc/fitness.cu)."""
+    return (8 * 12 + 256 + 3) * 4 * num_cameras + 4 * (2 * radius + 1) ** 2
 
 
 def _launch(entry: str, *args) -> None:
@@ -187,10 +203,13 @@ def score_windows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
         return F.score_windows(pyrs, cfg, H, pt, ref_cam, cam_mask, lod,
                                pvalid, active)
     B, P, C = H.shape[:3]
-    if C > MAX_CAMERAS:
-        raise ValueError(f"fitness kernel takes at most {MAX_CAMERAS} "
-                         f"cameras, got {C}")
     r = cfg.patch_radius
+    smem = fitness_smem_bytes(C, r)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"a rig of {C} cameras at r={r} needs {smem} bytes of shared "
+            f"memory per fitness-kernel block for its per-camera samples and "
+            f"records; one block can take {SMEM_PER_BLOCK}")
     images, dims, yoff, C_atlas, L, Ha, Wa = _atlas_args(pyrs)
     if C_atlas != C:
         raise ValueError(f"H has {C} cameras, the atlas {C_atlas}")

@@ -110,6 +110,47 @@ def test_patch_fitness_adaptive_flags(problem, dist, diff, grad):
     _assert_fitness_match(a, b, min_valid=40)
 
 
+@pytest.fixture(scope="module")
+def problem12():
+    """A 12-camera synthetic rig (more cameras than the fitness kernel's
+    first form could take), r=3: a few seeds, 4 particles each with the
+    bench's wide noise."""
+    from pais_mvs_tpu.data.synthetic import make_scene
+    from pais_mvs_tpu.models.camera import build_scene
+    jcfg, tcfg = _cfgs(patch_radius=3, dist_weighting=1.0)
+    sc = make_scene(num_cams=12, width=120, height=90, num_seeds=8, seed=4)
+    scene = build_scene(sc.params, sc.images, jcfg)
+    pb = jlc.prepare_seeds(scene, jcfg, jpm.from_seeds(
+        sc.seed_centers, sc.seed_cam_masks, sc.seed_img_points))
+    normal = jgeom.spherical_to_normal(jnp.asarray(pb.normal_sph))
+    ref_cam = jlc.set_reference_camera(scene, normal, pb.cam_mask)
+    depth, ray = jlc.set_depth_and_ray(scene, pb.center, ref_cam)
+    lod = jlc.set_lod(scene, jcfg, pb.center, ref_cam)
+    tscene = scene_from_numpy(dataclasses.asdict(jax.device_get(scene)),
+                              device="cpu")
+    base = np.stack([np.asarray(pb.normal_sph[:, 0]),
+                     np.asarray(pb.normal_sph[:, 1]), np.asarray(depth)],
+                    -1)[:, None, :]
+    host = dict(ref_cam=np.array(ref_cam), cam_mask=np.array(pb.cam_mask),
+                lod=np.array(lod), ray=np.array(ray), base=base)
+    return scene, tscene, host, jcfg, tcfg
+
+
+@pytest.mark.parametrize("noise_seed", [0, 1])
+def test_patch_fitness_matches_jnp_twelve_cameras(problem12, noise_seed):
+    """The plain twin (the fitness kernel's contract beyond 8 cameras)
+    against JAX's jnp ``patch_fitness`` on a 12-camera rig."""
+    jscene, tscene, h, jcfg, tcfg = problem12
+    assert h["cam_mask"].shape[1] == 12 and h["cam_mask"].sum(1).max() > 8
+    noise = np.random.default_rng(noise_seed).normal(
+        size=(h["base"].shape[0], 4, 3)) * np.array([0.3, 0.3, 0.002])
+    pos = (h["base"] + noise).astype(np.float32)
+    args = [h["ref_cam"], h["cam_mask"], h["lod"], h["ray"], pos]
+    a = np.asarray(JF.patch_fitness(jscene, jcfg, *map(jnp.asarray, args)))
+    b = TF.patch_fitness(tscene, tcfg, *map(torch.as_tensor, args)).numpy()
+    _assert_fitness_match(a, b, min_valid=4)
+
+
 def test_dispatcher_runs_plain_twin_on_cpu(problem):
     """CPU tensors go to the plain twin: same values, no kernel launch."""
     _, tscene, h = problem

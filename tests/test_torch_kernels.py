@@ -9,7 +9,8 @@ fixture, so it also runs on a machine with the card and no JAX:
 
 Tolerances: K1's BIG set exactly, values to 1e-4 (relative above 1): the
 per-pixel terms round alike (the kernels build with --fmad=false) and only
-the window sum's order differs; K2's ok set exactly, samples to 1e-5, in
+the window sum's order differs; K1 is checked at every particle-tile
+remainder (P in {1, 7, 16, 30}) and on a 12-camera rig; K2's ok set exactly, samples to 1e-5, in
 both its modes (NCC and view); its reference-window entry equal (the same
 pixels read); M to 1e-4 relative (the kernels sum the particles in the
 plain version's order).
@@ -41,56 +42,119 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def problem(cuda):
+def _problem(device, num_cams, num_seeds, P=16):
     """Seeds of a small synthetic scene with bench.py's wide hypothesis
-    noise (16 particles per seed)."""
-    sc = make_scene(num_cams=5, width=200, height=150, num_seeds=40)
+    noise (P particles per seed)."""
+    sc = make_scene(num_cams=num_cams, width=200, height=150,
+                    num_seeds=num_seeds)
     cfg = MvsConfig(**KW)
-    scene = build_scene(sc.params, sc.images, cfg, device=cuda)
+    scene = build_scene(sc.params, sc.images, cfg, device=device)
     pb = tlc.prepare_seeds(scene, cfg, tpm.from_seeds(
         sc.seed_centers, sc.seed_cam_masks, sc.seed_img_points,
-        device=cuda))
+        device=device))
     normal = pb.normal()
     ref = tlc.set_reference_camera(scene, normal, pb.cam_mask)
     depth, ray = tlc.set_depth_and_ray(scene, pb.center, ref)
     lod = tlc.set_lod(scene, cfg, pb.center, ref)
-    rng = np.random.default_rng(7)
-    noise = torch.tensor(rng.normal(size=(pb.capacity, 16, 3))
+    return scene, pb, normal, ref, lod, ray, _hypotheses(pb, depth, P)
+
+
+def _hypotheses(pb, depth, P, seed=7):
+    rng = np.random.default_rng(seed)
+    noise = torch.tensor(rng.normal(size=(pb.capacity, P, 3))
                          * np.array([0.3, 0.3, 0.002]), dtype=torch.float32,
-                         device=cuda)
-    pos = torch.stack([pb.normal_sph[:, 0], pb.normal_sph[:, 1], depth],
-                      -1)[:, None, :] + noise
-    return scene, pb, normal, ref, lod, ray, pos
+                         device=depth.device)
+    return torch.stack([pb.normal_sph[:, 0], pb.normal_sph[:, 1], depth],
+                       -1)[:, None, :] + noise
+
+
+@pytest.fixture(scope="module")
+def problem(cuda):
+    return _problem(cuda, 5, 40)
+
+
+@pytest.fixture(scope="module")
+def problem12(cuda):
+    """A 12-camera rig: more cameras than the kernel's first form took."""
+    return _problem(cuda, 12, 40)
+
+
+def _fitness_both(problem, radius, pos=None, active=None, pvalid=None):
+    """(plain, kernel) fitness at ``radius`` on the problem's seeds."""
+    scene, pb, _, ref, lod, ray, pos0 = problem
+    cfg = MvsConfig(**{**KW, "patch_radius": radius,
+                       "dist_weighting": radius / 3.0})
+    H, pt, pv = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod, ray,
+                                    pos0 if pos is None else pos)
+    args = (scene.pyramids, cfg, H, pt, ref, pb.cam_mask, lod,
+            pv if pvalid is None else pvalid)
+    return (TF.score_windows(*args).cpu().numpy(),
+            CF.score_windows(*args, active).cpu().numpy())
+
+
+def _assert_fitness_match(a, b):
+    np.testing.assert_array_equal(a >= BIG, b >= BIG)
+    ok = a < BIG
+    assert ok.any()
+    np.testing.assert_allclose(b[ok], a[ok], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("radius", [3, 6, 15, 24])
 def test_fitness_kernel_matches_plain(problem, radius):
-    scene, pb, _, ref, lod, ray, pos = problem
-    cfg = MvsConfig(**{**KW, "patch_radius": radius,
-                       "dist_weighting": radius / 3.0})
-    H, pt, pvalid = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod,
-                                        ray, pos)
-    args = (scene.pyramids, cfg, H, pt, ref, pb.cam_mask, lod, pvalid)
     before = CF.LAUNCHES["fitness"]
-    a = TF.score_windows(*args).cpu().numpy()
-    b = CF.score_windows(*args).cpu().numpy()
+    a, b = _fitness_both(problem, radius)
     assert CF.LAUNCHES["fitness"] == before + 1
-    np.testing.assert_array_equal(a >= BIG, b >= BIG)
-    ok = a < BIG
-    assert ok.any()
-    np.testing.assert_allclose(b[ok], a[ok], rtol=1e-4, atol=1e-4)
+    _assert_fitness_match(a, b)
     # inactive swarms come back BIG, active ones unchanged
+    pos = problem[-1]
     act = torch.arange(pos.shape[0], device=pos.device) % 2 == 0
-    c = CF.score_windows(*args, act).cpu().numpy()
+    _, c = _fitness_both(problem, radius, active=act)
     am = act.cpu().numpy()
     np.testing.assert_array_equal(c[am], b[am])
     assert np.all(c[~am] >= BIG)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("radius", [5, 15])
+@pytest.mark.parametrize("P,radius", [(1, 15), (7, 3), (7, 15), (30, 6),
+                                      (30, 24)])
+def test_fitness_kernel_particle_tiles(problem, P, radius):
+    """Eight particles a block: one particle, a partial tile (7, 30 = 3 x 8
+    + 6) and several tiles, at small and large windows."""
+    scene, pb, _, ref, _, _, _ = problem
+    depth, _ = tlc.set_depth_and_ray(scene, pb.center, ref)
+    a, b = _fitness_both(problem, radius, _hypotheses(pb, depth, P, seed=P))
+    _assert_fitness_match(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,radius", [(7, 3), (16, 6), (7, 15), (16, 24)])
+def test_fitness_kernel_twelve_cameras(problem12, P, radius):
+    scene, pb, _, ref, _, _, _ = problem12
+    assert int(pb.cam_mask.sum(1).max()) > 8
+    depth, _ = tlc.set_depth_and_ray(scene, pb.center, ref)
+    a, b = _fitness_both(problem12, radius,
+                         _hypotheses(pb, depth, P, seed=P))
+    _assert_fitness_match(a, b)
+
+
+@pytest.mark.gpu
+def test_fitness_kernel_dead_batches(problem):
+    """An all-inactive batch and a batch with no valid particle come back
+    all BIG."""
+    B, P = problem[-1].shape[:2]
+    dev = problem[-1].device
+    _, b = _fitness_both(problem, 15,
+                         active=torch.zeros(B, dtype=torch.bool, device=dev))
+    assert np.all(b >= BIG)
+    _, b = _fitness_both(problem, 15,
+                         pvalid=torch.zeros((B, P), dtype=torch.bool,
+                                            device=dev))
+    assert np.all(b >= BIG)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [3, 5, 6, 15, 24])
 def test_sampler_kernel_matches_plain(problem, radius):
     scene, pb, normal, ref, lod, _, _ = problem
     cfg = MvsConfig(**{**KW, "patch_radius": radius})
@@ -105,6 +169,10 @@ def test_sampler_kernel_matches_plain(problem, radius):
     np.testing.assert_array_equal(a > -5e8, b > -5e8)
     assert (a > -5e8).mean() > 0.3
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+    # a batch with every camera masked is INVALID throughout
+    b = CF.warped_samples(scene.pyramids, H, pt, lod, torch.zeros_like(mask),
+                          radius).cpu().numpy()
+    assert np.all(b == np.float32(TF.INVALID))
 
 
 @pytest.mark.gpu
@@ -171,10 +239,12 @@ def test_kernel_rejects_what_it_does_not_take(problem):
                           pb.cam_mask, 5)
     with pytest.raises(ValueError, match="int32"):
         CF.warped_samples(scene.pyramids, H, pt, lod.long(), pb.cam_mask, 5)
-    # the fitness kernel keeps one register array of MAX_CAMERAS samples per
-    # pixel: a larger rig is refused, never truncated
-    Hb = torch.zeros((2, 3, CF.MAX_CAMERAS + 1, 3, 3), device=H.device)
-    with pytest.raises(ValueError, match=f"at most {CF.MAX_CAMERAS} cameras"):
+    # the fitness kernel keeps each camera's samples and records in shared
+    # memory: a rig beyond one block's share is refused, never truncated
+    C = CF.SMEM_PER_BLOCK // CF.fitness_smem_bytes(1, 0) + 1
+    assert CF.fitness_smem_bytes(C, 5) > CF.SMEM_PER_BLOCK
+    Hb = torch.zeros((2, 3, C, 3, 3), device=H.device)
+    with pytest.raises(ValueError, match="shared memory"):
         CF.score_windows(scene.pyramids, cfg, Hb, pt[:2, None].expand(2, 3, 2),
                          ref[:2], pb.cam_mask[:2], lod[:2],
                          torch.ones((2, 3), dtype=torch.bool, device=H.device))
