@@ -15,17 +15,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   3. K2 (warped-window sampler, NCC mode) against its plain twin on the
      three scenes, r in {3, 6, 15, 24}, on and off the surface, and with
      every camera masked: same ok set, 1e-5 (relative above 1);
-  4. K2' (the sampler in its view mode: every particle, margins (2, 3),
-     act and pvalid masks) against its plain twin at the selftest shape,
-     both scenes, r in {3, 6, 15, 24}: same ok set, 1e-5 (relative above
-     1, as K2); and the sampler's reference-window entry (the view mode's
-     nearest reads of the reference camera, intensity and edge weight,
-     0 on rows a rank does not own) against its twin at the same shapes:
-     equal;
+  4. the view fitness's two kernels, A (``view_moments``: per window
+     pixel, the camera block's valid-sample sum, its invalid visible
+     cameras and the reference windows) and B (``view_deviation``: the sum
+     of |sample - mean|), against their plain twins at the selftest shape:
+     both scenes on camera blocks of 5 and 1, the 12-camera rig whole, r in
+     {3, 6, 15, 24}, the edge plane on and off, a third of the swarms
+     inactive and a third of the reference cameras not owned; then every
+     swarm inactive and no valid particle: A's counts and reference planes
+     equal, its sums and B to 1e-5 (relative above 1);
   5. the main path: ``refine_batch`` in seed mode, one round, at the full
      bench.py workload (5 cameras at 640x480, r=15, 15 particles x 30
      iterations doubled for seeds, B=1024, maxLOD 6); the launch counts of
-     that run (K1 = 61, K2 = 1, K2' = 0), bench.py's quality bar (accepted
+     that run (K1 = 61, K2 = 1, no other), bench.py's quality bar (accepted
      > 50%, median surface distance < 0.003), and refined patches/s timed
      with CUDA events after a warm-up, with peak device memory; K1's
      inputs of the round's 31st evaluation are kept for phase 14;
@@ -36,13 +38,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   8. the seed-stage ``Reconstructor`` end to end, writing a PLY and
      reading it back;
   9. the view-sharded fitness through a real NCCL process group of world
-     size 1 (K2' and the psum epilogue) against flat K1 on the same inputs,
-     both scenes: exact BIG set, 1e-4 (relative above 1);
+     size 1 (A, one psum, B, a second psum, the torch weights) against flat
+     K1 on the same inputs, both scenes: exact BIG set, 1e-4 (relative
+     above 1);
  10. the view path at full width: the bench workload's seed round through
      ``parallel.sharded.refine_sharded`` at dp=1, vp=1; launch counts
-     (K2' = 61, reference windows = 61, K2 = 1, K1 = 0), bench.py's bar,
-     the round timed beside
-     phase 5's flat round, with peak device memory;
+     (A = 61, B = 61, K2 = 1, K1 = 0; A's and B's inputs of the round's
+     31st evaluation are kept for phase 14), bench.py's bar, the round
+     timed beside phase 5's flat round, with peak device memory;
  11. the real-photo gate through the view path (2 rounds);
  12. vp=5 on the one card: 5 gloo ranks, one camera each (each builds its
      camera block from the host pyramids), B=64: the view fitness against
@@ -52,10 +55,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
  13. M, the microbench of K1's inner loop
      (``python -m pais_mvs_tpu_torch.tools.microbench_kernel``): both
      variants against the plain twin (1e-4 relative), then their times;
- 14. each kernel's time at the main paths' shapes (K1 on the round's
-     first evaluation and on its 31st), beside its plain twin's, its
-     roofline bound and, for K2, K2' and the reference windows,
-     ``grid_sample`` on the same coordinates; printed as one
+ 14. each kernel's time at the main paths' shapes (K1, A and B on the
+     round's first evaluation and on its 31st), beside its plain twin's,
+     its roofline bound and, for K2, A and B, ``grid_sample`` on the same
+     coordinates (for A and B: sampling only); then one whole
+     ``fitness_view`` evaluation (device time, both kernels and both
+     psums), the view path's like-for-like yardstick; printed as one
      ``{"kernels": [...]}`` line. ``ms`` is device time: the timed
      launches wait behind a ``torch.cuda._sleep`` that outlasts the host's
      enqueue, so the CUDA events around them bracket device work only;
@@ -92,7 +97,11 @@ FP32_OPS_PER_S = 67e12
 # foreground mask 1, sums 3.
 K1_OPS_SAMPLE, K1_OPS_PIXEL, K1_OPS_GRAD = 32, 12, 4
 K2_OPS_SAMPLE = 29
-# reference window: window coordinates (2 adds) and their rounding (2)
+# the view kernels, per (window pixel, active camera) sample: K2's 29, then
+# A's sum (1), B's subtraction, absolute value and sum (3); per window
+# pixel, A's reference lookup: window coordinates (2 adds) and their
+# rounding (2)
+VIEW_A_OPS_SAMPLE, VIEW_B_OPS_SAMPLE = 30, 32
 REF_OPS_PIXEL = 4
 
 
@@ -167,7 +176,10 @@ def time_ms(fn, reps: int, warmup: int = 2):
     The host time is the host clock over the same enqueue: what the
     wrapper costs the caller per call. If the sleep ended before the host
     had enqueued every call, the sleep is made longer and the run repeated;
-    it fails if that never holds."""
+    it fails if that never holds: when a call waits on the device, or when
+    ``reps`` calls queue more launches than the card's launch queue holds
+    (about a thousand: then the host blocks until the device drains it),
+    so a call of many launches is timed over few ``reps``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -252,8 +264,7 @@ def touched_atlas_elements(pyrs, H, pt, lod, cam_mask, keep, radius, lo,
 
 def k1_bound_ms(scene, cfg, H, pt, ref, cam_mask, lod, pvalid, active):
     """K1's roofline bound on these inputs: (ms, "bytes" or "operations",
-    a description, the kept particles, the atlas elements their bilinear
-    taps read). Operations: the FP32 work of the kept particles
+    a description). Operations: the FP32 work of the kept particles
     (valid and in an active swarm). Bytes: the atlas elements their taps
     read (bilinear taps inside K1's margins, plus the nearest reference
     pixel of every window pixel in images and, with the gradient weight,
@@ -290,7 +301,6 @@ def k1_bound_ms(scene, cfg, H, pt, ref, cam_mask, lod, pvalid, active):
     n_img = int((img_t | ref_t).sum())
     n_edge = int(ref_t.sum()) if cfg.adaptive_gradient_enable else 0
     n_kept = int(kept.sum())
-    n_taps = int(img_t.sum())
     nbytes = float((n_img + n_edge) * atlas.element_size()
                    + n_kept * (C * 9 + 2) * 4 + pvalid.numel()
                    + ref.numel() * 4 + lod.numel() * 4 + cam_mask.numel()
@@ -300,7 +310,30 @@ def k1_bound_ms(scene, cfg, H, pt, ref, cam_mask, lod, pvalid, active):
             "bytes" if t_bytes >= t_ops else "operations",
             f"{ops:.3e} FP32 ops, {nbytes:.3e} bytes of which atlas {n_img} "
             f"image + {n_edge} edge elements of {atlas.numel()}, {n_kept} "
-            f"of {B * P} particles kept", n_kept, n_taps)
+            f"of {B * P} particles kept")
+
+
+def first_evaluation(scene, cfg, pb, P, gen):
+    """The inputs of a seed round's first PSO evaluation: (ref_cam, lod,
+    ray, active, pos [B, P, 3]) with P particles drawn uniformly in the
+    PSO bounds (lifecycle.refine_batch's seed-mode lo/hi), every live
+    swarm active."""
+    import torch
+    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    B, dev = pb.capacity, pb.device
+    ref = lc.set_reference_camera(scene, pb.normal(), pb.cam_mask)
+    depth, ray = lc.set_depth_and_ray(scene, pb.center, ref)
+    dr, drop = lc.set_depth_range(scene, cfg, pb.center, ray, depth, ref,
+                                  pb.cam_mask,
+                                  torch.tensor(0.005, device=dev))
+    lod = lc.set_lod(scene, cfg, pb.center, ref)
+    lo = torch.stack([torch.zeros(B, device=dev),
+                      pb.normal_sph[:, 1] - np.pi / 2, dr[:, 0]], -1)
+    hi = torch.stack([torch.full((B,), np.pi, device=dev),
+                      pb.normal_sph[:, 1] + np.pi / 2, dr[:, 1]], -1)
+    u = torch.rand((B, P, 3), generator=gen, device=dev)
+    return (ref, lod, ray, pb.valid & ~drop,
+            lo[:, None] + (hi - lo)[:, None] * u)
 
 
 def selftest_inputs(scene, cfg, pb, n, P, seed):
@@ -375,53 +408,134 @@ def check_sampler(label, scene, cfg, center, normal, ref, mask, lod):
     return m, (H, pt)
 
 
-def check_sampler_view(label, scene, cfg, H, pt, lod, act, pvalid):
-    """K2' vs its plain twin on the same inputs; returns max |err|."""
+def view_inputs(scene, cfg, ref, mask, lod, ray, pos, c, active=None,
+                own_every=3, no_valid=False):
+    """The view kernels' inputs on the camera block of size ``c`` holding
+    the rig's middle camera: the block's pyramids, H to its cameras,
+    window centres, act (visible x ``active``), the block's cam_mask,
+    pvalid (all False with ``no_valid``), the reference camera's local
+    index, own (off on every ``own_every``-th patch, as if another rank
+    held it), and last each patch's number of visible cameras in the
+    whole rig (the global mean's divisor)."""
+    import torch
+    from pais_mvs_tpu_torch.ops import fitness as F
+    from pais_mvs_tpu_torch.ops import view_fitness as VF
+    C = scene.num_cameras
+    H, pt, pvalid = F.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+    vi = (C // 2) // c
+    off = vi * c
+    pyrs = VF._local_pyramids(scene.view_block(vi, C // c).pyramids, off, c)
+    mloc = mask[:, off:off + c].contiguous()
+    act = mloc if active is None else (active[:, None] & mloc).contiguous()
+    own, ref_loc = VF.own_and_local(ref, off, c)
+    own = own & (torch.arange(ref.shape[0], device=ref.device)
+                 % own_every != 0)
+    if no_valid:
+        pvalid = torch.zeros_like(pvalid)
+    return (pyrs, H[:, :, off:off + c].contiguous(), pt, lod, act, mloc,
+            pvalid, ref_loc, own, mask.sum(-1).float())
+
+
+def check_view_kernels(label, args, radius, edges):
+    """The view fitness's kernels against their plain twins on the same
+    inputs: A (view_moments) planes 1-3 equal on rows with a finite window
+    centre (the others are never read: their particles are invalid),
+    plane 0 to 1e-5 (relative above 1); B (view_deviation), against the
+    plain sum over the rig's visible cameras (``args``' last entry; as
+    one view rank sees it), to 1e-5. Returns (max |err| of A, of B)."""
     import torch
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import fitness as F
-    r = cfg.patch_radius
-    args = (scene.pyramids, H, pt, lod, act, pvalid, r)
-    plain = F.warped_samples_view(*args)
-    kern = CF.warped_samples_view(*args)
+    pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own, cn = args
+    am = (pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own, radius, edges)
+    plain = F.view_moments(*am)
+    kern = CF.view_moments(*am)
+    mean = plain[0] / cn.clamp(min=1)[:, None, None]
+    ad = (pyrs, H, pt, lod, act, pvalid, mean, radius)
+    dplain = F.view_deviation(*ad)
+    dkern = CF.view_deviation(*ad)
     torch.cuda.synchronize()
-    okp, okk = plain > F.INVALID / 2, kern > F.INVALID / 2
-    if not torch.equal(okp, okk):
-        fail(f"K2' {label}: ok sets differ in {int((okp != okk).sum())} "
-             f"samples")
-    err = (kern - plain).abs()[okp]
-    m = float(err.max()) if err.numel() else 0.0
-    if m > 1e-5 * max(1.0, float(plain[okp].abs().max())):
-        fail(f"K2' {label}: max |err| {m:.3g} over tolerance")
-    log(f"K2' {label}: {int(okp.sum())}/{okp.numel()} samples valid, ok "
-        f"set equal, max |err| {m:.3g}")
-    return m
+    rows = torch.isfinite(pt).all(-1)
+    if not torch.equal(kern[1:][:, rows], plain[1:][:, rows]):
+        fail(f"view_moments {label}: planes 1-3 differ in "
+             f"{int((kern[1:][:, rows] != plain[1:][:, rows]).sum())} "
+             f"values")
+    errs = []
+    for name, k, p in (("view_moments plane 0", kern[0], plain[0]),
+                       ("view_deviation", dkern, dplain)):
+        err = (k - p).abs()
+        m = float(err.max()) if err.numel() else 0.0
+        if not bool(torch.isfinite(k).all()) or bool(
+                (err > 1e-5 * torch.clamp(p.abs(), min=1.0)).any()):
+            fail(f"{name} {label}: max |err| {m:.3g} over tolerance")
+        errs.append(m)
+    log(f"view kernels {label}: {int(pvalid.sum())}/{pvalid.numel()} valid "
+        f"particles, {int((plain[1] > 0).sum())} pixels with an invalid "
+        f"camera, {int((plain[2] != 0).sum())} reference pixels; planes "
+        f"1-3 equal, max |err| plane 0 {errs[0]:.3g}, deviation "
+        f"{errs[1]:.3g}")
+    return tuple(errs)
 
 
-def check_ref_window(label, scene, pt, ref, own, lod, radius, edges):
-    """The reference-window entry vs its plain twin on the same inputs,
-    rows with a finite window centre (the others are never read: their
-    particles are invalid); returns max |err|, which must be 0."""
+def ref_pixels(pyrs, pt, ref_cam, own, lod, radius) -> int:
+    """The distinct atlas pixels the reference lookups of the owned rows
+    read (round(pt + offset), clamped as the kernels clamp)."""
     import torch
-    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import fitness as F
-    args = (scene.pyramids, pt, ref, own, lod, radius, edges)
-    plain = F.reference_windows(*args)
-    kern = CF.reference_windows(*args)
-    torch.cuda.synchronize()
-    rows = torch.isfinite(pt).all(-1)                          # [B, P]
-    err = (kern - plain).abs()[:, rows]
-    m = float(err.max()) if err.numel() else 0.0
-    if not m == 0.0:
-        fail(f"reference window {label}: max |err| {m:.3g}, expected 0")
-    log(f"reference window {label}: {int(rows.sum())}/{rows.numel()} rows, "
-        f"{int((plain[0][rows] != 0).sum())} foreground pixels, equal")
-    return m
+    _, Ha, Wa = pyrs.images.shape
+    win = pt[own][:, :, None, :] + torch.as_tensor(
+        F.window_offsets(radius), device=pt.device)           # [n,P,W2,2]
+    yo = pyrs.yoff[lod[own].long()][:, None, None]
+    xr = torch.round(win[..., 0]).to(torch.int32).clamp(0, Wa - 1).long()
+    yr = (torch.round(win[..., 1]).to(torch.int32) + yo).clamp(
+        0, Ha - 1).long()
+    return int(torch.unique(ref_cam[own].long()[:, None, None] * (Ha * Wa)
+                            + yr * Wa + xr).numel())
+
+
+def view_bound_ms(args, radius, edges, n_ref):
+    """A's and B's roofline bounds on these inputs: ((ms, "bytes" or
+    "operations", description) of A, the same of B). Operations: the FP32
+    work of the samples each computes (active camera x valid particle x
+    window pixel) and of each window pixel. Bytes: the atlas elements the
+    samples' taps read (inside the margins), the distinct reference
+    pixels A reads (``n_ref``, in each of its reference planes), H of
+    the cameras each sampled and the window centres, the small inputs
+    whole, B's mean where it samples, each output written once."""
+    pyrs, H, pt, lod, act, mask, pvalid = args[:7]
+    B, P, C = H.shape[:3]
+    W2 = (2 * radius + 1) ** 2
+    pairs = act[:, None, :] & pvalid[:, :, None]               # [B, P, c]
+    n_pairs = int(pairs.sum())
+    live = int(pairs.any(-1).sum())
+    n_taps = int(touched_atlas_elements(
+        pyrs, H.reshape(B * P, C, 3, 3), pt.reshape(B * P, 2),
+        lod.repeat_interleave(P), act.repeat_interleave(P, 0),
+        pvalid.reshape(-1), radius, 2.0, 3.0).sum())
+    esz = pyrs.images.element_size()
+    small = B * 4 + act.numel() + pvalid.numel()       # lod, act, pvalid
+    planes = 4 if edges else 3
+    a_bytes = float((n_taps + (planes - 2) * n_ref) * esz
+                    + n_pairs * 9 * 4 + B * P * 2 * 4 + small
+                    + mask.numel() + B * 5 + planes * B * P * W2 * 4)
+    a_ops = float(n_pairs * W2 * VIEW_A_OPS_SAMPLE
+                  + B * P * W2 * REF_OPS_PIXEL)
+    b_bytes = float(n_taps * esz + n_pairs * 9 * 4 + B * P * 2 * 4 + small
+                    + live * W2 * 4 + B * P * W2 * 4)
+    b_ops = float(n_pairs * W2 * VIEW_B_OPS_SAMPLE + live * W2 * 2)
+    out = []
+    for nb, no in ((a_bytes, a_ops), (b_bytes, b_ops)):
+        tb, to = nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S
+        out.append((max(tb, to) * 1e3, "bytes" if tb >= to else "operations",
+                    f"{no:.3e} FP32 ops, {nb:.3e} bytes of which atlas "
+                    f"{n_taps} tap elements, {n_pairs} (camera, particle) "
+                    f"pairs sampled"))
+    return tuple(out)
 
 
 def check_view_fitness(label, scene, cfg, ref, mask, lod, ray, pos, view):
-    """The view-sharded fitness (K2' + psum epilogue) vs flat K1; returns
-    max |err|."""
+    """The view-sharded fitness (the two view kernels around the psums) vs
+    flat K1; returns max |err|."""
     import torch
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import view_fitness as VF
@@ -566,6 +680,7 @@ def main():
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import fitness as F
     from pais_mvs_tpu_torch.ops import lifecycle as lc
+    from pais_mvs_tpu_torch.ops import view_fitness as VF
     from pais_mvs_tpu_torch.ops.pso import draw_uniforms
     from pais_mvs_tpu_torch.parallel.distributed import init_distributed
     from pais_mvs_tpu_torch.parallel.mesh import make_mesh
@@ -680,27 +795,34 @@ def main():
         check_sampler(f"{label} every camera masked", s, c, p.center, n, ref,
                       torch.zeros_like(p.cam_mask), lod)
 
-    # 4. K2' and the reference windows vs plain at the selftest shape, both
-    #    scenes, four radii; act switches inactive swarms and one camera of
-    #    some patches off; every third patch's reference camera is not
-    #    owned (as on another view rank)
-    err2v = errw = 0.0
-    for label, s, c, p in (("synthetic", scene, cfg, pb),
-                           ("realistic", rscene, rcfg, rpb)):
+    # 4. the view kernels (A: view_moments, B: view_deviation) vs plain at
+    #    the selftest shape: both scenes on camera blocks of 5 and 1, the
+    #    12-camera rig whole, four radii, the edge plane on and off; act
+    #    switches a third of the swarms off, every third patch's reference
+    #    camera is not owned (as on another view rank); then every swarm
+    #    inactive and no valid particle
+    errva = errvb = 0.0
+    for label, s, c, p, blocks in (("synthetic", scene, cfg, pb, (5, 1)),
+                                   ("realistic", rscene, rcfg, rpb, (5, 1)),
+                                   ("12-camera", scene12, cfg, pb12, (12,))):
         sub, ref, lod, ray, pos = selftest_inputs(s, c, p, 256, 16, 7)
-        act = sub.cam_mask & (torch.arange(sub.capacity, device=dev)
-                              % 3 != 0)[:, None]
-        act[::4, 1] = False
-        own = torch.arange(sub.capacity, device=dev) % 3 != 1
-        for r in (3, 6, 15, 24):
-            cr = c.replace(patch_radius=r, dist_weighting=r / 3.0)
-            H, pt, pvalid = F.fitness_geometry(s, cr, ref, sub.cam_mask,
-                                               lod, ray, pos)
-            err2v = max(err2v, check_sampler_view(
-                f"{label} r={r}", s, cr, H, pt, lod, act, pvalid))
-            errw = max(errw, check_ref_window(f"{label} r={r}", s, pt, ref,
-                                              own, lod, r, True))
-    del H, pt, pvalid
+        act = torch.arange(sub.capacity, device=dev) % 3 != 0
+        for cb in blocks:
+            for r in (3, 6, 15, 24):
+                cr = c.replace(patch_radius=r, dist_weighting=r / 3.0)
+                args = view_inputs(s, cr, ref, sub.cam_mask, lod, ray, pos,
+                                   cb, act)
+                for edges in (False, True):
+                    ea, eb = check_view_kernels(
+                        f"{label} c={cb} r={r} edges={edges}", args, r,
+                        edges)
+                    errva, errvb = max(errva, ea), max(errvb, eb)
+        for what, kw in (("all inactive", {"active": torch.zeros_like(act)}),
+                         ("no valid particle", {"no_valid": True})):
+            check_view_kernels(f"{label} {what}", view_inputs(
+                s, c, ref, sub.cam_mask, lod, ray, pos, blocks[-1], **kw),
+                c.patch_radius, True)
+    del args
 
     # 5. the main path: one seed round at the bench workload; K1's inputs
     #    of a mid-round PSO evaluation (the 31st of 61) are kept for phase
@@ -825,19 +947,40 @@ def main():
     block = scene.view_block(mesh.view.index, mesh.view.size)
     view_round = lambda: refine_sharded(block, cfg, pb, 0.005, True, 1,
                                         mesh.patch, mesh.view, seed=0)
+    #     the view kernels' inputs of the round's 31st evaluation are kept
+    #     for phase 14 by pass-throughs around the two dispatchers
+    view_in = {"view_moments": [], "view_deviation": []}
+    wrapped = {k: getattr(CF, k) for k in view_in}
+
+    def keep_31st(name):
+        def call(pyrs, *args):
+            if len(view_in[name]) == 30:
+                view_in[name].append((pyrs,) + tuple(
+                    t.clone() if torch.is_tensor(t) else t for t in args))
+            else:
+                view_in[name].append(None)
+            return wrapped[name](pyrs, *args)
+        return call
+
     torch.cuda.synchronize()
     CF.reset_launch_counts()
     t0 = time.time()
-    vres = view_round()
+    try:
+        for k in view_in:
+            setattr(CF, k, keep_31st(k))
+        vres = view_round()
+    finally:
+        for k, fn in wrapped.items():
+            setattr(CF, k, fn)
     torch.cuda.synchronize()
     vfirst_s = time.time() - t0
     vlaunches = dict(CF.LAUNCHES)
     log(f"view path (refine_sharded, dp=1 vp=1, 1 round, B={B}): first "
         f"run {vfirst_s:.2f} s, launches {vlaunches}")
-    if vlaunches != {**dict.fromkeys(CF.LAUNCHES, 0), "sampler_view": 61,
-                     "ref_window": 61, "sampler": 1}:
-        fail(f"view path launch counts {vlaunches}, expected sampler_view "
-             f"61, ref_window 61, sampler 1 and no other (fitness 0)")
+    if vlaunches != {**dict.fromkeys(CF.LAUNCHES, 0), "view_moments": 61,
+                     "view_deviation": 61, "sampler": 1}:
+        fail(f"view path launch counts {vlaunches}, expected view_moments "
+             f"61, view_deviation 61, sampler 1 and no other (fitness 0)")
     vkeep = vres.batch.valid.cpu().numpy()
     vd = sc.surface_distance(vres.batch.center.cpu().numpy()[vkeep])
     vmed = float(np.median(vd)) if vkeep.any() else float("inf")
@@ -902,7 +1045,6 @@ def main():
         f"{mdc5:.3g}")
     if agree5 < 0.95 or mdc5 > 1e-4:
         fail("vp=5 refine disagrees with vp=1")
-    torch.distributed.destroy_process_group()
 
     # 13. M: the microbench tool (its launches), then each variant against
     #     the plain twin and their times
@@ -932,20 +1074,7 @@ def main():
     #    K1: the first PSO evaluation of the round (particles drawn in the
     #    PSO bounds, every live swarm active); the atlas stays in L2 across
     #    the PSO loop, as it does here across repeated launches
-    normal = pb.normal()
-    ref = lc.set_reference_camera(scene, normal, pb.cam_mask)
-    depth, ray = lc.set_depth_and_ray(scene, pb.center, ref)
-    dr, drop = lc.set_depth_range(scene, cfg, pb.center, ray, depth, ref,
-                                  pb.cam_mask,
-                                  torch.tensor(0.005, device=dev))
-    valid = pb.valid & ~drop
-    lod = lc.set_lod(scene, cfg, pb.center, ref)
-    lo = torch.stack([torch.zeros(B, device=dev),
-                      pb.normal_sph[:, 1] - np.pi / 2, dr[:, 0]], -1)
-    hi = torch.stack([torch.full((B,), np.pi, device=dev),
-                      pb.normal_sph[:, 1] + np.pi / 2, dr[:, 1]], -1)
-    u = torch.rand((B, P, 3), generator=gen, device=dev)
-    pos = lo[:, None] + (hi - lo)[:, None] * u
+    ref, lod, ray, valid, pos = first_evaluation(scene, cfg, pb, P, gen)
     err_main, (H, pt, pvalid) = check_fitness(
         f"main shape B={B} P={P}", scene, cfg, ref, pb.cam_mask, lod, ray,
         pos, valid)
@@ -953,7 +1082,7 @@ def main():
     k1 = (scene.pyramids, cfg, H, pt, ref, pb.cam_mask, lod, pvalid, valid)
     k1_ms, k1_host = time_ms(lambda: CF.score_windows(*k1), reps=20)
     k1_plain = wall_ms(lambda: F.score_windows(*k1), reps=3)
-    k1_bound, k1_by, k1_what, n_kept, n_k2v = k1_bound_ms(scene, *k1[1:])
+    k1_bound, k1_by, k1_what = k1_bound_ms(scene, *k1[1:])
     log(f"K1 at B={B} P={P} r={cfg.patch_radius}, first evaluation: "
         f"{k1_ms:.4f} ms/launch on the device, {k1_host:.4f} ms host per "
         f"call, plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}: "
@@ -964,7 +1093,7 @@ def main():
         "K1 in-loop (evaluation 31 of 61) vs plain", CF.score_windows(*k1l),
         torch.where(k1l[-1][:, None], F.score_windows(*k1l), 1e30)))
     k1l_ms, k1l_host = time_ms(lambda: CF.score_windows(*k1l), reps=20)
-    k1l_bound, k1l_by, k1l_what = k1_bound_ms(scene, *k1l[1:])[:3]
+    k1l_bound, k1l_by, k1l_what = k1_bound_ms(scene, *k1l[1:])
     log(f"K1 in-loop: {k1l_ms:.4f} ms/launch on the device, {k1l_host:.4f} "
         f"ms host per call, bound {k1l_bound:.4f} ms ({k1l_by}: {k1l_what}); "
         f"x61 per round = {61 * k1_ms:.2f} (first) to {61 * k1l_ms:.2f} "
@@ -1021,30 +1150,58 @@ def main():
         f"{atlas.numel()}, {k2_ops:.3e} FP32 ops)")
     del grid, uu, vv, w, sw
 
-    #    K2': the round's first view-path evaluation, on K1's inputs above
-    #    (H, pt, pvalid of every particle; act = live swarms x visible
-    #    cameras)
+    #    the view kernels: the round's first view-path evaluation, on K1's
+    #    inputs above (act = live swarms x visible cameras; vp=1, so every
+    #    row is owned; the edge plane only if the workload weighs
+    #    gradients, as the view path does), then on the inputs of the
+    #    round's 31st evaluation (phase 10)
+    grad = cfg.adaptive_gradient_enable
+    vpyrs = VF._local_pyramids(scene.pyramids, 0, C)
     act = (valid[:, None] & pb.cam_mask).contiguous()
-    k2v = (scene.pyramids, H, pt, lod, act, pvalid, r)
-    err2v = max(err2v, check_sampler_view(f"main shape B={B} P={P}", scene,
-                                          cfg, H, pt, lod, act, pvalid))
-    k2v_ms, k2v_host = time_ms(lambda: CF.warped_samples_view(*k2v),
-                               reps=20)
-    k2v_plain = wall_ms(lambda: F.warped_samples_view(*k2v), reps=3)
-    k2v_ops = float(int((act[:, :, None] & pvalid[:, None, :]).sum())
-                    * W2 * K2_OPS_SAMPLE)
-    #    bytes: the atlas elements the computed samples' taps read (K1's
-    #    in-margin image taps above, n_k2v: the same particles, cameras
-    #    and margins), H and pt of the kept particles, the small inputs
-    #    whole, the [B, C, P, W2] f32 output written once
-    k2v_bytes = float(n_k2v * atlas.element_size() + n_kept * (C * 9 + 2) * 4
-                      + B * 4 + act.numel() + pvalid.numel()
-                      + B * C * P * W2 * 4)
-    k2v_bound = max(k2v_bytes / HBM_BYTES_PER_S,
-                    k2v_ops / FP32_OPS_PER_S) * 1e3
-    k2v_by = ("bytes" if k2v_bytes / HBM_BYTES_PER_S
-              >= k2v_ops / FP32_OPS_PER_S else "operations")
-    #    grid_sample on the same coordinates, one grid row per particle
+    own = torch.ones(B, dtype=torch.bool, device=dev)
+    cn = pb.cam_mask.sum(-1).float()
+    vargs = (vpyrs, H, pt, lod, act, pb.cam_mask, pvalid, ref, own, cn)
+    ea, eb = check_view_kernels(f"main shape B={B} P={P}", vargs, r, grad)
+    errva, errvb = max(errva, ea), max(errvb, eb)
+    am = vargs[:9] + (r, grad)
+    ad = (vpyrs, H, pt, lod, act, pvalid,
+          CF.view_moments(*am)[0] / cn[:, None, None], r)
+    va_ms, va_host = time_ms(lambda: CF.view_moments(*am), reps=20)
+    vb_ms, vb_host = time_ms(lambda: CF.view_deviation(*ad), reps=20)
+    va_plain = wall_ms(lambda: F.view_moments(*am), reps=3)
+    vb_plain = wall_ms(lambda: F.view_deviation(*ad), reps=3)
+    (va_bound, va_by, va_what), (vb_bound, vb_by, vb_what) = view_bound_ms(
+        vargs, r, grad, ref_pixels(vpyrs, pt, ref, own, lod, r))
+    aml, adl = view_in["view_moments"][30], view_in["view_deviation"][30]
+    ea, eb = check_view_kernels("in-loop (evaluation 31 of 61)",
+                                aml[:9] + (aml[5].sum(-1).float(),), r, grad)
+    errva, errvb = max(errva, ea), max(errvb, eb)
+    dl_p, dl_k = F.view_deviation(*adl), CF.view_deviation(*adl)
+    if not bool((dl_k - dl_p).abs().le(
+            1e-5 * dl_p.abs().clamp(min=1.0)).all()):
+        fail("view_deviation in-loop on the round's own mean: over 1e-5")
+    val_ms, val_host = time_ms(lambda: CF.view_moments(*aml), reps=20)
+    vbl_ms, vbl_host = time_ms(lambda: CF.view_deviation(*adl), reps=20)
+    (val_bound, _, val_what), (vbl_bound, _, vbl_what) = view_bound_ms(
+        aml[:9], r, grad, ref_pixels(vpyrs, aml[2], aml[7], aml[8], aml[3],
+                                     r))
+    for name, ms, host, plain, bound, by, what, ms_l, host_l, bound_l, \
+            what_l in (("view_moments (A)", va_ms, va_host, va_plain,
+                        va_bound, va_by, va_what, val_ms, val_host,
+                        val_bound, val_what),
+                       ("view_deviation (B)", vb_ms, vb_host, vb_plain,
+                        vb_bound, vb_by, vb_what, vbl_ms, vbl_host,
+                        vbl_bound, vbl_what)):
+        log(f"{name} at B={B} P={P} r={r}: first evaluation {ms:.4f} "
+            f"ms/launch on the device, {host:.4f} ms host per call, plain "
+            f"{plain:.3f} ms, bound {bound:.4f} ms ({by}: {what}); in-loop "
+            f"{ms_l:.4f} ms (host {host_l:.4f}), bound {bound_l:.4f} ms "
+            f"({what_l}); x61 per view round = {61 * ms:.2f} (first) to "
+            f"{61 * ms_l:.2f} (in-loop) ms of the {vround_ms:.2f} ms round")
+    #    library yardstick, sampling only: grid_sample on the first
+    #    evaluation's coordinates, one grid row per particle (the kernels
+    #    also sum over the cameras and read the reference windows)
+    offs = torch.as_tensor(F.window_offsets(r), device=dev)
     win = pt[:, :, None, :] + offs                             # [B,P,W2,2]
     x, y = win[..., 0][..., None], win[..., 1][..., None]
     Hc = H[:, :, None]                                         # [B,P,1,C,3,3]
@@ -1057,65 +1214,30 @@ def main():
                        -1).permute(3, 0, 1, 2, 4).reshape(
                            C, B * P, W2, 2).contiguous()       # [C,BP,W2,2]
     del win, x, y, Hc, w, sw, uu, vv
+    img = atlas.float()[:, None]
     lib_v_ms, lib_v_host = time_ms(lambda: TNF.grid_sample(
         img, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), reps=20)
-    log(f"K2' at B={B} P={P} r={r}: {k2v_ms:.4f} ms/launch on the device, "
-        f"{k2v_host:.4f} ms host per call, plain {k2v_plain:.3f} ms, "
-        f"grid_sample {lib_v_ms:.4f} ms (host {lib_v_host:.4f}), bound "
-        f"{k2v_bound:.4f} ms ({k2v_by}: {k2v_bytes:.3e} bytes of which the "
-        f"output {B * C * P * W2 * 4:.3e} and atlas {n_k2v} elements, "
-        f"{k2v_ops:.3e} FP32 ops); x61 per view round = "
-        f"{61 * k2v_ms:.2f} ms of the {vround_ms:.2f} ms round")
+    log(f"grid_sample (sampling only) on the view evaluation's coordinates: "
+        f"{lib_v_ms:.4f} ms on the device (host {lib_v_host:.4f})")
     del grid, img
-
-    #    the reference windows: the same evaluation's reads of the reference
-    #    camera (vp=1, so every row is owned; the edge plane only if the
-    #    workload weighs gradients, as the view path does)
-    grad = cfg.adaptive_gradient_enable
-    nplanes = 2 if grad else 1
-    own = torch.ones(B, dtype=torch.bool, device=dev)
-    kw = (scene.pyramids, pt, ref, own, lod, r, grad)
-    errw = max(errw, check_ref_window(f"main shape B={B} P={P}", scene, pt,
-                                      ref, own, lod, r, grad))
-    kw_ms, kw_host = time_ms(lambda: CF.reference_windows(*kw), reps=50)
-    kw_plain = wall_ms(lambda: F.reference_windows(*kw), reps=5)
-    #    bytes: the distinct atlas elements the lookups read (every row:
-    #    the kernel reads invalid particles' windows too), pt and the small
-    #    inputs, the [n, B, P, W2] f32 output written once
-    win = pt[:, :, None, :] + offs                             # [B,P,W2,2]
-    yo = scene.pyramids.yoff[lod.long()][:, None, None]
-    xr = torch.round(win[..., 0]).to(torch.int32).clamp(0, Wa - 1).long()
-    yr = (torch.round(win[..., 1]).to(torch.int32) + yo).clamp(
-        0, Ha - 1).long()
-    n_ref = int(torch.unique(ref.long()[:, None, None] * (Ha * Wa)
-                             + yr * Wa + xr).numel())
-    del xr, yr
-    kw_bytes = float(nplanes * (n_ref * atlas.element_size()
-                                + B * P * W2 * 4) + B * P * 2 * 4 + B * 9)
-    kw_ops = float(B * P * W2 * REF_OPS_PIXEL)
-    kw_bound = max(kw_bytes / HBM_BYTES_PER_S, kw_ops / FP32_OPS_PER_S) * 1e3
-    kw_by = ("bytes" if kw_bytes / HBM_BYTES_PER_S
-             >= kw_ops / FP32_OPS_PER_S else "operations")
-    #    grid_sample (nearest) on the same pixels: the cameras' atlases
-    #    stacked as the rows of one image, one channel per plane
-    stack = torch.stack([atlas, scene.pyramids.edges][:nplanes]).float(
-        ).reshape(1, nplanes, C * Ha, Wa)
-    gy = ref.float()[:, None, None] * Ha + yo.float() + win[..., 1]
-    grid = torch.stack([win[..., 0] / (Wa - 1) * 2 - 1,
-                        gy / (C * Ha - 1) * 2 - 1], -1).reshape(
-                            1, B * P, W2, 2)
-    del win, gy
-    lib_w_ms, lib_w_host = time_ms(lambda: TNF.grid_sample(
-        stack, grid, mode="nearest", padding_mode="zeros",
-        align_corners=True), reps=50)
-    log(f"reference window at B={B} P={P} r={r} ({nplanes} plane(s)): "
-        f"{kw_ms:.4f} ms/launch on the device, {kw_host:.4f} ms host per "
-        f"call, plain {kw_plain:.3f} ms, grid_sample {lib_w_ms:.4f} ms "
-        f"(host {lib_w_host:.4f}), bound {kw_bound:.4f} ms ({kw_by}: "
-        f"{kw_bytes:.3e} bytes of which atlas {n_ref} elements, "
-        f"{kw_ops:.3e} FP32 ops); x61 per view round = {61 * kw_ms:.2f} ms")
-    del stack, grid
+    #    one whole fitness_view evaluation (both kernels, both psums through
+    #    the NCCL group of world 1, the torch weights), device time: the
+    #    like-for-like yardstick now that the kernels absorb the epilogue
+    #    (4 calls: some 170 launches each must fit the launch queue)
+    evaluate = lambda: VF.fitness_view(block, cfg, ref, pb.cam_mask, lod,
+                                       ray, pos, mesh.view, active=valid)
+    compare_fitness("view fitness at the main shape vs K1", evaluate(),
+                    CF.score_windows(*k1))
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ev_ms, ev_host = time_ms(evaluate, reps=4)
+    ev_mem = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    log(f"one fitness_view evaluation at B={B} P={P} r={r} (first of the "
+        f"round): {ev_ms:.4f} ms on the device, {ev_host:.4f} ms host per "
+        f"call, {ev_mem:.3f} GiB of device memory above its inputs; x61 = "
+        f"{61 * ev_ms:.2f} ms of the {vround_ms:.2f} ms view round")
+    torch.distributed.destroy_process_group()
     torch.cuda.synchronize()
 
     kernels = [
@@ -1132,18 +1254,22 @@ def main():
          "launches": launches["sampler"], "max_abs_err": err2,
          "ms": k2_ms, "host_ms": k2_host, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
-        {"name": "warped_sampler_view", "route": "cuda",
-         "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
+        {"name": "view_moments", "route": "cuda",
+         "source": "pais_mvs_tpu_torch/csrc/view_fitness.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
-         "launches": vlaunches["sampler_view"], "max_abs_err": err2v,
-         "ms": k2v_ms, "host_ms": k2v_host, "plain_ms": k2v_plain, "bound_ms": k2v_bound,
-         "bound_by": k2v_by, "library_ms": lib_v_ms},
-        {"name": "reference_window", "route": "cuda",
-         "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
+         "launches": vlaunches["view_moments"], "max_abs_err": errva,
+         "ms": va_ms, "ms_in_loop": val_ms, "host_ms": va_host,
+         "plain_ms": va_plain, "bound_ms": va_bound,
+         "bound_ms_in_loop": val_bound, "bound_by": va_by,
+         "library_ms": lib_v_ms},
+        {"name": "view_deviation", "route": "cuda",
+         "source": "pais_mvs_tpu_torch/csrc/view_fitness.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
-         "launches": vlaunches["ref_window"], "max_abs_err": errw,
-         "ms": kw_ms, "host_ms": kw_host, "plain_ms": kw_plain, "bound_ms": kw_bound,
-         "bound_by": kw_by, "library_ms": lib_w_ms},
+         "launches": vlaunches["view_deviation"], "max_abs_err": errvb,
+         "ms": vb_ms, "ms_in_loop": vbl_ms, "host_ms": vb_host,
+         "plain_ms": vb_plain, "bound_ms": vb_bound,
+         "bound_ms_in_loop": vbl_bound, "bound_by": vb_by,
+         "library_ms": lib_v_ms},
     ] + [
         {"name": f"microbench_{v}", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/microbench.cu",

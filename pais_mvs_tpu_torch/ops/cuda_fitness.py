@@ -7,13 +7,12 @@ The counterpart of ``pais_mvs_tpu/ops/pallas_fitness.py``:
   * ``warped_samples`` — the warped-window sampler in its NCC mode (K2,
     ``csrc/sampler.cu``), replacing ``_sample_kernel`` (pallas_fitness.py:67)
     as ``warped_patch_vectors_pallas`` (:867) calls it;
-  * ``warped_samples_view`` — the same sampler in its view (fitness) mode
-    (K2', ``csrc/sampler.cu``), as ``_run_sampler_raw`` (:421) serves
-    ``view_fitness.fitness_view_pallas``: every particle, margins (2, 3),
-    ``act`` and ``pvalid`` masks;
-  * ``reference_windows`` — the view mode's nearest reads of the reference
-    camera's intensity and edge weight (``csrc/sampler.cu``), which
-    ``_ref_window_rows`` (view_fitness.py:198) makes with the same kernel.
+  * ``view_moments`` and ``view_deviation`` — the view path's fitness
+    (``csrc/view_fitness.cu``): the sampler's view mode (``_sample_kernel``
+    as ``fitness_view_pallas``, view_fitness.py:283, and
+    ``_ref_window_rows``, :198, call it) fused with the camera sums of
+    ``fitness_view_jnp`` (view_fitness.py:162-172), one kernel before each
+    of its two psums.
 
 Each wrapper has the signature of its plain twin in ``ops/fitness.py``. A
 CPU tensor runs the plain twin; a CUDA tensor launches the kernel or raises
@@ -52,7 +51,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 SOURCES = {"fitness": "fitness.cu", "sampler": "sampler.cu",
-           "microbench": "microbench.cu"}
+           "view_fitness": "view_fitness.cu", "microbench": "microbench.cu"}
 # the dynamic shared memory one block may take on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
 
@@ -69,14 +68,15 @@ ENTRIES = {
     # out, stream
     "sampler": ("sampler", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                             _I, _P, _P]),
-    # images, dims, yoff, C, L, Ha, Wa, H, pt, lod, act, pvalid, B, P,
-    # radius, lo, hi, out, stream
-    "sampler_view": ("sampler", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                 _P, _I, _I, _I, _F, _F, _P, _P]),
-    # images, edges, yoff, Ha, Wa, pt, ref_cam, own, lod, B, P, radius,
-    # out, stream
-    "ref_window": ("sampler", [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                               _I, _P, _P]),
+    # images, edges, dims, yoff, C, L, Ha, Wa, H, pt, lod, act, cam_mask,
+    # pvalid, ref_cam, own, B, P, radius, out, stream
+    "view_moments": ("view_fitness", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                                      _P]),
+    # images, dims, yoff, C, L, Ha, Wa, H, pt, lod, act, pvalid, mean, B, P,
+    # radius, out, stream
+    "view_deviation": ("view_fitness", [_P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                        _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     # box, nbox, cells, out, stream
     "microbench_a": ("microbench", [_P, _I, _I, _P, _P]),
     "microbench_b": ("microbench", [_P, _I, _I, _P, _P]),
@@ -258,58 +258,79 @@ def warped_samples(pyrs, H, pt, lod, cam_mask, radius: int):
     return out
 
 
-def warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius: int):
-    """K2': bilinear samples of every (patch, camera, particle, window
-    pixel), INVALID outside the fitness margins [2, dim-3), where w = 0, or
-    where ``act`` or ``pvalid`` is False.
+def view_smem_bytes(num_cameras: int, radius: int, planes: int) -> int:
+    """The shared memory of one block of the view kernels: one 12-float
+    record per camera and ``planes`` window tiles (as ``view_smem_bytes``
+    in csrc/view_fitness.cu)."""
+    return 4 * 12 * num_cameras + 4 * planes * (2 * radius + 1) ** 2
 
-    H [B, P, C, 3, 3] f32, pt [B, P, 2] f32, lod [B] int32, act [B, C]
-    bool, pvalid [B, P] bool -> [B, C, P, W2] f32."""
-    if H.device.type == "cpu":
-        return F.warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius)
+
+def _view_args(pyrs, H, pt, lod, act, pvalid, radius: int, planes: int):
+    """The arguments the two view kernels share, checked; (B, P, C) and
+    the rest."""
     B, P, C = H.shape[:3]
-    W2 = (2 * radius + 1) ** 2
+    smem = view_smem_bytes(C, radius, planes)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"a block of {C} cameras at r={radius} needs {smem} bytes of "
+            f"shared memory per view-kernel block for its camera records and "
+            f"window tiles; one block can take {SMEM_PER_BLOCK}")
     images, dims, yoff, C_atlas, L, Ha, Wa = _atlas_args(pyrs)
     if C_atlas != C:
         raise ValueError(f"H has {C} cameras, the atlas {C_atlas}")
-    out = torch.empty((B, C, P, W2), dtype=torch.float32, device=H.device)
-    _launch("sampler_view", images, dims, yoff, C, L, Ha, Wa,
-            _check("H", H, torch.float32, (B, P, C, 3, 3)),
-            _check("pt", pt, torch.float32, (B, P, 2)),
-            _check("lod", lod, torch.int32, (B,)),
-            _check("act", act, torch.bool, (B, C)),
+    return (B, P, C), (images, dims, yoff, C, L, Ha, Wa,
+                       _check("H", H, torch.float32, (B, P, C, 3, 3)),
+                       _check("pt", pt, torch.float32, (B, P, 2)),
+                       _check("lod", lod, torch.int32, (B,)),
+                       _check("act", act, torch.bool, (B, C)))
+
+
+def view_moments(pyrs, H, pt, lod, act, cam_mask, pvalid, ref_cam, own,
+                 radius: int, edges: bool):
+    """Kernel A of the view fitness: per window pixel of every (patch,
+    particle), over the block's cameras, the valid samples' sum (plane 0),
+    the cam_mask cameras with an invalid sample (plane 1), and the
+    reference camera's intensity (plane 2) and, with ``edges``, edge
+    weight (plane 3) where this rank owns it, else 0.
+
+    H [B, P, c, 3, 3] f32, pt [B, P, 2] f32, lod [B] int32, act [B, c]
+    bool, cam_mask [B, c] bool, pvalid [B, P] bool, ref_cam [B] int32 (an
+    index into the block), own [B] bool -> [n, B, P, W2] f32, n = 4 with
+    ``edges``, else 3."""
+    if H.device.type == "cpu":
+        return F.view_moments(pyrs, H, pt, lod, act, cam_mask, pvalid,
+                              ref_cam, own, radius, edges)
+    planes = 4 if edges else 3
+    (B, P, C), args = _view_args(pyrs, H, pt, lod, act, pvalid, radius,
+                                 planes)
+    out = torch.empty((planes, B, P, (2 * radius + 1) ** 2),
+                      dtype=torch.float32, device=H.device)
+    _launch("view_moments", args[0],
+            _check("edges", pyrs.edges, torch.bfloat16, pyrs.images.shape)
+            if edges else None, *args[1:],
+            _check("cam_mask", cam_mask, torch.bool, (B, C)),
             _check("pvalid", pvalid, torch.bool, (B, P)),
-            B, P, radius, 2.0, 3.0, out.data_ptr())
+            _check("ref_cam", ref_cam, torch.int32, (B,)),
+            _check("own", own, torch.bool, (B,)),
+            B, P, radius, out.data_ptr())
     return out
 
 
-def reference_windows(pyrs, pt, ref_cam, own, lod, radius: int,
-                      edges: bool):
-    """The reference camera's intensity and (with ``edges``) edge weight at
-    the nearest pixel of every window pixel of every particle; 0 in the
-    rows whose reference camera this rank does not hold.
+def view_deviation(pyrs, H, pt, lod, act, pvalid, mean, radius: int):
+    """Kernel B of the view fitness: per window pixel of every (patch,
+    particle), the sum over the block's cameras of |sample - mean| for the
+    valid samples; 0 where the particle is invalid or no camera is active.
 
-    pt [B, P, 2] f32, ref_cam [B] int32 (an index into the atlas block),
-    own [B] bool, lod [B] int32 -> [n, B, P, W2] f32 (n = 2 with
-    ``edges``, else 1)."""
-    if pt.device.type == "cpu":
-        return F.reference_windows(pyrs, pt, ref_cam, own, lod, radius,
-                                   edges)
-    B, P = pt.shape[:2]
+    H, pt, lod, act, pvalid as ``view_moments``; mean [B, P, W2] f32 ->
+    [B, P, W2] f32."""
+    if H.device.type == "cpu":
+        return F.view_deviation(pyrs, H, pt, lod, act, pvalid, mean, radius)
+    (B, P, C), args = _view_args(pyrs, H, pt, lod, act, pvalid, radius, 1)
     W2 = (2 * radius + 1) ** 2
-    L = pyrs.dims.shape[1]
-    _, Ha, Wa = pyrs.images.shape
-    out = torch.empty((2 if edges else 1, B, P, W2), dtype=torch.float32,
-                      device=pt.device)
-    _launch("ref_window",
-            _check("images", pyrs.images, torch.bfloat16),
-            _check("edges", pyrs.edges, torch.bfloat16, pyrs.images.shape)
-            if edges else None,
-            _check("yoff", pyrs.yoff, torch.int32, (L + 1,)), Ha, Wa,
-            _check("pt", pt, torch.float32, (B, P, 2)),
-            _check("ref_cam", ref_cam, torch.int32, (B,)),
-            _check("own", own, torch.bool, (B,)),
-            _check("lod", lod, torch.int32, (B,)),
+    out = torch.empty((B, P, W2), dtype=torch.float32, device=H.device)
+    _launch("view_deviation", *args,
+            _check("pvalid", pvalid, torch.bool, (B, P)),
+            _check("mean", mean, torch.float32, (B, P, W2)),
             B, P, radius, out.data_ptr())
     return out
 

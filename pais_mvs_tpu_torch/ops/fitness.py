@@ -10,11 +10,12 @@ tensor program over ``[B, P]`` (patches x particles).
 Each scoring function is split where its kernel begins:
   * ``fitness_geometry`` / ``warp_geometry``: per-particle homographies,
     reference-window centres and validity, shared by both routes;
-  * ``score_windows`` / ``warped_samples`` / ``warped_samples_view`` /
-    ``reference_windows``: the pixel work, the plain twins of the CUDA
-    kernels in
-    ``ops/cuda_fitness.py``. They run for CPU tensors, and
-    ``chip_smoke.py`` holds each kernel against its twin.
+  * ``score_windows`` / ``warped_samples`` / ``view_moments`` /
+    ``view_deviation``: the pixel work, the plain twins of the CUDA kernels
+    in ``ops/cuda_fitness.py``. They run for CPU tensors, and
+    ``chip_smoke.py`` holds each kernel against its twin. The view twins
+    are built from the view path's sampling stage, ``warped_samples_view``
+    and ``reference_windows``.
 
 Semantics matched to the reference:
   * candidate = (theta, phi, depth) against a fixed (ref cam, cam set, LOD);
@@ -331,7 +332,8 @@ def warped_samples(pyrs, H, pt, lod, cam_mask, radius: int):
 
 
 def warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius: int):
-    """Plain twin of the sampler kernel's view mode: bilinear samples of
+    """The view path's sampling stage (the Pallas sampler's view mode, which
+    ``view_moments`` and ``view_deviation`` build on): bilinear samples of
     every (patch, camera, particle, window pixel) with the fitness margins,
     INVALID outside [2, dim-3), where w is 0, or where ``act`` (patch,
     camera) or ``pvalid`` (patch, particle) is False. The sampling stage of
@@ -362,12 +364,13 @@ def warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius: int):
 
 def reference_windows(pyrs, pt, ref_cam, own, lod, radius: int,
                       edges: bool):
-    """Plain twin of the sampler kernel's reference-window entry: the
-    reference camera's intensity and, with ``edges``, its edge weight at the
-    nearest pixel (per-pixel round(pt + offset)) of every window pixel, as
-    pais_mvs_tpu/ops/view_fitness.py::fitness_view_jnp reads them
-    (:135-143, :185-187); 0 in the rows of patches whose reference camera
-    this rank does not hold (``where``, so nothing of those rows leaks).
+    """The view path's reference-window reads (``view_moments``' planes 2
+    and 3): the reference camera's intensity and, with ``edges``, its edge
+    weight at the nearest pixel (per-pixel round(pt + offset)) of every
+    window pixel, as pais_mvs_tpu/ops/view_fitness.py::fitness_view_jnp
+    reads them (:135-143, :185-187); 0 in the rows of patches whose
+    reference camera this rank does not hold (``where``, so nothing of
+    those rows leaks).
 
     pt [B, P, 2], ref_cam [B] (an index into ``pyrs``' cameras, valid on
     every row), own [B] bool, lod [B] -> [n, B, P, W2] f32, n = 2 with
@@ -380,6 +383,50 @@ def reference_windows(pyrs, pt, ref_cam, own, lod, radius: int,
         torch.where(own_b, nearest_gather(a, pyrs.yoff, cam, lod_b,
                                           win).float(), 0.0)
         for a in atlases])
+
+
+def view_moments(pyrs, H, pt, lod, act, cam_mask, pvalid, ref_cam, own,
+                 radius: int, edges: bool):
+    """Plain twin of the view fitness's first kernel: what
+    pais_mvs_tpu/ops/view_fitness.py::fitness_view_jnp psums first
+    (:135-143, :162-172, :185-187), on a camera block, per window pixel of
+    every (patch, particle):
+
+      plane 0: the valid samples of ``warped_samples_view``, added in
+        camera order;
+      plane 1: the cameras of ``cam_mask`` whose sample is invalid (outside
+        [2, dim-3), w = 0, or ``act`` or ``pvalid`` off), as f32;
+      plane 2 (and 3 with ``edges``): ``reference_windows``.
+
+    H [B, P, c, 3, 3], pt [B, P, 2], lod [B], act / cam_mask [B, c],
+    pvalid [B, P], ref_cam [B] (an index into the block), own [B]
+    -> [n, B, P, W2] f32, n = 4 with ``edges``, else 3."""
+    vals = warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius)
+    vok = vals > INVALID / 2                                  # [B, c, P, W2]
+    total = torch.zeros_like(vals[:, 0])
+    bad = torch.zeros_like(total)
+    for c in range(vals.shape[1]):
+        total = total + torch.where(vok[:, c], vals[:, c], 0.0)
+        bad = bad + (cam_mask[:, c, None, None] & ~vok[:, c]).to(bad.dtype)
+    return torch.cat([torch.stack([total, bad]),
+                      reference_windows(pyrs, pt, ref_cam, own, lod, radius,
+                                        edges)])
+
+
+def view_deviation(pyrs, H, pt, lod, act, pvalid, mean, radius: int):
+    """Plain twin of the view fitness's second kernel: per window pixel of
+    every (patch, particle), |sample - mean| summed in camera order over
+    the block's valid samples (fitness_view_jnp's SAD term, :170-171,
+    before its psum); 0 where ``pvalid`` or every ``act`` is off.
+
+    ``mean`` [B, P, W2] is the global per-pixel mean; the other arguments
+    as ``view_moments`` -> [B, P, W2] f32."""
+    vals = warped_samples_view(pyrs, H, pt, lod, act, pvalid, radius)
+    vok = vals > INVALID / 2
+    dev = torch.zeros_like(mean)
+    for c in range(vals.shape[1]):
+        dev = dev + torch.where(vok[:, c], (vals[:, c] - mean).abs(), 0.0)
+    return dev
 
 
 def warped_patch_vectors(scene, cfg: MvsConfig, center, normal, ref_cam,

@@ -22,12 +22,16 @@ flow here is static, and every value a later branch reads (fitness,
 validity, NCC table) comes out of an all_reduce, which gives every rank
 the same bits.
 
-``fitness_view`` samples through two entries of the sampler kernel
-(``csrc/sampler.cu``): the local block's warped windows (K2',
-``cuda_fitness.warped_samples_view``) and the reference camera's windows
-(``cuda_fitness.reference_windows``); CPU tensors run their plain twins,
-which makes it, on the CPU, a mirror of the jnp reference
-``fitness_view_jnp`` (view_fitness.py:98-195). It is held to that, never to
+``fitness_view`` runs in two stages around the view psums, one kernel each
+(``csrc/view_fitness.cu``): ``cuda_fitness.view_moments`` samples the local
+block and sums, per window pixel, the valid samples and the invalid
+cameras, beside the reference camera's windows on the owning rank; one
+psum of those planes gives the global mean; ``cuda_fitness.view_deviation``
+re-warps and sums |sample - mean| over the block; a second psum gives the
+SAD; the adaptive weights stay in torch (``_weigh``). No [B, c, P, W2]
+tensor of samples is made. CPU tensors run the kernels' plain twins, which
+makes it, on the CPU, a mirror of the jnp reference ``fitness_view_jnp``
+(view_fitness.py:98-195). It is held to that, never to
 ``fitness_view_pallas``. What is TPU mechanism there is not ported: the
 depth sort (:240-249, :328), the depth-invariant window centre (:264-272),
 the box cover (:237-238) and the rounded window centre of the reference
@@ -120,19 +124,6 @@ def _fitness_geometry(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray,
     return H, pt, ~facing_bad & in_ref & (hbad == 0)
 
 
-def _reference_windows(scene, cfg: MvsConfig, pt, ref_cam, lod, view):
-    """The reference camera's foreground mask [B, P, W2] and edge window
-    (None without the gradient weight) at every window pixel: nearest
-    lookups on the owning rank, 0 elsewhere, psum-replicated
-    (view_fitness.py:135-143, :185-187)."""
-    offset, c_local = block_of(scene, view)
-    own, ref_loc = own_and_local(ref_cam, offset, c_local)
-    grad = cfg.adaptive_gradient_enable
-    ref = view.psum(CF.reference_windows(scene.pyramids, pt, ref_loc, own,
-                                         lod, cfg.patch_radius, grad))
-    return ref[0] != 0, ref[1] if grad else None
-
-
 def _weigh(cfg: MvsConfig, sad, bad, fg, edge, pvalid):
     """Adaptive weights and the weighted mean SAD (view_fitness.py:
     177-195); every input is replicated over the view axis."""
@@ -154,38 +145,39 @@ def _weigh(cfg: MvsConfig, sad, bad, fg, edge, pvalid):
 
 def fitness_view(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray, pos,
                  view, active=None):
-    """View-sharded ``ops.fitness.patch_fitness``: the local block's warped
-    samples from K2' (``cuda_fitness.warped_samples_view``) and the
-    reference windows (``cuda_fitness.reference_windows``), each the
-    kernel for CUDA tensors and its plain twin for CPU tensors, then the
-    psum-composed epilogue of ``fitness_view_jnp`` (view_fitness.py:
-    162-195) over the [B, c, P, W2] samples. ``scene`` holds this rank's
+    """View-sharded ``ops.fitness.patch_fitness``, composed as
+    ``fitness_view_jnp`` (view_fitness.py:135-195) composes it:
+
+      1. ``view_moments`` on the local block, then ONE psum of its planes:
+         the per-pixel sum of valid samples (-> mean), the count of
+         invalid visible cameras, the reference intensity (-> foreground)
+         and, with the gradient weight, edge weight;
+      2. ``view_deviation`` against that mean, then a psum: the SAD;
+      3. ``_weigh`` in torch.
+
+    Both kernels' outputs are fresh tensors of this call, so they are
+    reduced in place (``Collective.psum_``). ``scene`` holds this rank's
     camera block; ``cam_mask`` [B, C] is global. Inactive swarms come back
     BIG. Returns [B, P] f32 (BIG = rejected), the same on every view
     rank."""
-    pyrs = scene.pyramids
     offset, c_local = block_of(scene, view)
+    pyrs = _local_pyramids(scene.pyramids, offset, c_local)
     H, pt, pvalid = _fitness_geometry(scene, cfg, ref_cam, cam_mask, lod,
                                       ray, pos, view)
     cam_mask_loc = cam_mask[:, offset:offset + c_local].contiguous()
     act = cam_mask_loc if active is None else active[:, None] & cam_mask_loc
-    vals = CF.warped_samples_view(_local_pyramids(pyrs, offset, c_local), H,
-                                  pt, lod, act, pvalid, cfg.patch_radius)
+    own, ref_loc = own_and_local(ref_cam, offset, c_local)
+    r = cfg.patch_radius
+    grad = cfg.adaptive_gradient_enable
+    mom = view.psum_(CF.view_moments(pyrs, H, pt, lod, act, cam_mask_loc,
+                                     pvalid, ref_loc, own, r, grad))
+    cn = cam_mask.sum(-1).to(mom.dtype)[:, None, None]
+    mean = mom[0].div_(cn)                                    # [B, P, W2]
+    sad = view.psum_(CF.view_deviation(pyrs, H, pt, lod, act, pvalid, mean,
+                                       r)).div_(cn)
     del H
-    fg, edge = _reference_windows(scene, cfg, pt, ref_cam, lod, view)
-
-    # the kernel writes INVALID for switched-off cameras, so vok implies m
-    vok = vals > F.INVALID / 2                                # [B, c, P, W2]
-    bad = view.psum((cam_mask_loc[:, :, None, None] & ~vok).sum(
-        1, dtype=torch.int32))                                # [B, P, W2]
-    vals.masked_fill_(~vok, 0.0)
-    cn = cam_mask.sum(-1).to(vals.dtype)[:, None, None]
-    mean = view.psum(vals.sum(1)) / cn                        # [B, P, W2]
-    # in place: the [B, c, P, W2] temporaries are the round's largest
-    dev = vals.sub_(mean[:, None]).abs_().mul_(vok)
-    sad = view.psum(dev.sum(1)) / cn
-    del vals, dev, vok
-    fit = _weigh(cfg, sad, bad, fg, edge, pvalid)
+    fit = _weigh(cfg, sad, mom[1], mom[2] != 0, mom[3] if grad else None,
+                 pvalid)
     if active is not None:
         fit = torch.where(active[:, None], fit, BIG)
     return fit

@@ -56,6 +56,19 @@ class Collective:
         y = y.to(x.device)
         return y.to(x.dtype) if half else y
 
+    def psum_(self, x: torch.Tensor) -> torch.Tensor:
+        """``psum`` into ``x`` itself, for a fresh tensor the caller owns
+        (its own values are overwritten): NCCL, and gloo on a host tensor,
+        reduce ``x`` where it lies and save ``psum``'s copy; gloo stages a
+        device tensor through host memory and copies the sum back. Returns
+        ``x``."""
+        if x.dtype == torch.bool:
+            raise TypeError("psum of a bool tensor: sum an int count")
+        if self._host and x.device.type != "cpu":
+            return x.copy_(self.psum(x))
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
     def own_psum(self, x: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
         """psum of ``x`` masked to the owning rank (``own`` broadcastable
         bool); ``where``, not multiply, so a non-owner's garbage or NaN

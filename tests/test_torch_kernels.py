@@ -10,10 +10,12 @@ fixture, so it also runs on a machine with the card and no JAX:
 Tolerances: K1's BIG set exactly, values to 1e-4 (relative above 1): the
 per-pixel terms round alike (the kernels build with --fmad=false) and only
 the window sum's order differs; K1 is checked at every particle-tile
-remainder (P in {1, 7, 16, 30}) and on a 12-camera rig; K2's ok set exactly, samples to 1e-5, in
-both its modes (NCC and view); its reference-window entry equal (the same
-pixels read); M to 1e-4 relative (the kernels sum the particles in the
-plain version's order).
+remainder (P in {1, 7, 16, 30}) and on a 12-camera rig; K2's ok set
+exactly, samples to 1e-5; the view fitness's kernels (view_moments,
+view_deviation): counts and reference planes equal, camera sums and
+deviations to 1e-5 (relative above 1), on camera blocks of 1, 5 and 12;
+M to 1e-4 relative (the kernels sum the particles in the plain version's
+order).
 """
 
 import numpy as np
@@ -21,12 +23,14 @@ import pytest
 import torch
 
 from pais_mvs_tpu_torch.config import MvsConfig
+from pais_mvs_tpu_torch.data.realistic import make_realistic_scene
 from pais_mvs_tpu_torch.data.synthetic import make_scene
 from pais_mvs_tpu_torch.models import patch as tpm
 from pais_mvs_tpu_torch.models.camera import build_scene
 from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import fitness as TF
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
+from pais_mvs_tpu_torch.ops import view_fitness as VF
 from pais_mvs_tpu_torch.tools import microbench_kernel as MB
 
 BIG = 1e20
@@ -175,48 +179,114 @@ def test_sampler_kernel_matches_plain(problem, radius):
     assert np.all(b == np.float32(TF.INVALID))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("radius", [3, 15, 24])
-def test_sampler_view_kernel_matches_plain(problem, radius):
-    """K2 in its view mode: every particle, margins (2, 3), act and pvalid
-    masks switching rows off."""
+@pytest.fixture(scope="module")
+def problem_real(cuda):
+    """The real-photo pawn-rig scene (5 cameras), its seeds prepared."""
+    rsc = make_realistic_scene(num_seeds=64, seed=0)
+    cfg = MvsConfig(**KW)
+    scene = build_scene(rsc.params, rsc.images, cfg, device=cuda)
+    pb = tlc.prepare_seeds(scene, cfg, tpm.from_seeds(
+        rsc.seed_centers, rsc.seed_cam_masks, rsc.seed_img_points,
+        device=cuda))
+    ref = tlc.set_reference_camera(scene, pb.normal(), pb.cam_mask)
+    depth, ray = tlc.set_depth_and_ray(scene, pb.center, ref)
+    lod = tlc.set_lod(scene, cfg, pb.center, ref)
+    return scene, pb, pb.normal(), ref, lod, ray, _hypotheses(pb, depth, 16)
+
+
+def _view_inputs(problem, radius, c, act=None, pvalid=None):
+    """The view kernels' inputs on the camera block of size ``c`` holding
+    the rig's middle camera: H to the block's cameras, window centres,
+    pvalid; act switches one camera of every fourth patch off; every
+    third patch's reference camera lies off the block's owner; last, each
+    patch's number of visible cameras in the whole rig."""
     scene, pb, _, ref, lod, ray, pos = problem
+    C = scene.num_cameras
     cfg = MvsConfig(**{**KW, "patch_radius": radius})
-    H, pt, pvalid = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod,
-                                        ray, pos)
-    act = pb.cam_mask.clone()
-    act[::4, 2] = False
-    args = (scene.pyramids, H, pt, lod, act, pvalid, radius)
-    before = CF.LAUNCHES["sampler_view"]
-    a = TF.warped_samples_view(*args).cpu().numpy()
-    b = CF.warped_samples_view(*args).cpu().numpy()
-    assert CF.LAUNCHES["sampler_view"] == before + 1
-    assert b.shape == (pos.shape[0], scene.num_cameras, pos.shape[1],
-                       (2 * radius + 1) ** 2)
-    np.testing.assert_array_equal(a > -5e8, b > -5e8)
-    assert (a > -5e8).mean() > 0.2
-    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+    H, pt, pv = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod, ray,
+                                    pos)
+    vi = (C // 2) // c
+    offset = vi * c
+    pyrs = VF._local_pyramids(scene.view_block(vi, C // c).pyramids, offset,
+                              c)
+    mask = pb.cam_mask[:, offset:offset + c].contiguous()
+    if act is None:
+        act = mask.clone()
+        act[::4, 0] = False
+    own, ref_loc = VF.own_and_local(ref, offset, c)
+    own = own & (torch.arange(ref.shape[0], device=ref.device) % 3 != 0)
+    return (pyrs, H[:, :, offset:offset + c].contiguous(), pt, lod, act,
+            mask, pv if pvalid is None else pvalid, ref_loc, own,
+            pb.cam_mask.sum(-1).float())
+
+
+def _view_both(args, radius, edges):
+    """(plain, kernel) of view_moments, then of view_deviation against
+    the plain sum over the whole rig's visible cameras (as one view rank
+    sees it); checks the launches and
+    the match: planes 1-3 equal on rows whose window centre is finite (the
+    others are never read: their particles are invalid), plane 0 and the
+    deviation to 1e-5 (relative above 1). Returns the four as numpy."""
+    pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own, cn = args
+    before = dict(CF.LAUNCHES)
+    a = TF.view_moments(pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own,
+                        radius, edges)
+    b = CF.view_moments(pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own,
+                        radius, edges)
+    mean = a[0] / cn.clamp(min=1)[:, None, None]
+    da = TF.view_deviation(pyrs, H, pt, lod, act, pvalid, mean, radius)
+    db = CF.view_deviation(pyrs, H, pt, lod, act, pvalid, mean, radius)
+    assert CF.LAUNCHES == {**before,
+                           "view_moments": before["view_moments"] + 1,
+                           "view_deviation": before["view_deviation"] + 1}
+    W2 = (2 * radius + 1) ** 2
+    assert b.shape == (3 + edges, *pt.shape[:2], W2)
+    assert db.shape == (*pt.shape[:2], W2)
+    a, b, da, db = (t.cpu().numpy() for t in (a, b, da, db))
+    rows = torch.isfinite(pt).all(-1).cpu().numpy()
+    np.testing.assert_array_equal(b[1:][:, rows], a[1:][:, rows])
+    np.testing.assert_allclose(b[0], a[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(db, da, rtol=1e-5, atol=1e-5)
+    return a, b, da, db
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("radius", [3, 15])
-@pytest.mark.parametrize("edges", [False, True])
-def test_ref_window_kernel_matches_plain(problem, radius, edges):
-    """The sampler's reference-window entry: nearest lookups of the
-    reference camera, 0 in the rows this rank does not own; equal."""
-    scene, pb, _, ref, lod, ray, pos = problem
-    cfg = MvsConfig(**{**KW, "patch_radius": radius})
-    _, pt, _ = TF.fitness_geometry(scene, cfg, ref, pb.cam_mask, lod, ray,
-                                   pos)
-    own = torch.arange(pt.shape[0], device=pt.device) % 3 != 0
-    args = (scene.pyramids, pt, ref, own, lod, radius, edges)
-    before = CF.LAUNCHES["ref_window"]
-    a = TF.reference_windows(*args).cpu().numpy()
-    b = CF.reference_windows(*args).cpu().numpy()
-    assert CF.LAUNCHES["ref_window"] == before + 1
-    assert b.shape == (1 + edges, *pt.shape[:2], (2 * radius + 1) ** 2)
-    np.testing.assert_array_equal(b, a)
-    assert (a[0] != 0).mean() > 0.2
+@pytest.mark.parametrize("radius", [3, 6, 15, 24])
+@pytest.mark.parametrize("which,c", [("synthetic", 5), ("synthetic", 1),
+                                     ("realistic", 5), ("realistic", 1),
+                                     ("twelve", 12)])
+def test_view_kernels_match_plain(request, which, c, radius):
+    """The view fitness's two kernels (A: view_moments, B: view_deviation)
+    against their plain twins on both scenes and the 12-camera rig, on a
+    camera block of c = 1, 5 or 12, with act rows off and the reference
+    camera owned by some rows only; the edge plane on and off."""
+    problem = request.getfixturevalue(
+        {"synthetic": "problem", "realistic": "problem_real",
+         "twelve": "problem12"}[which])
+    args = _view_inputs(problem, radius, c)
+    for edges in (False, True):
+        a, b, da, db = _view_both(args, radius, edges)
+    assert (a[1] > 0).any() and (a[0] != 0).any() and (a[2] != 0).any()
+    assert (db != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dead", ["act", "pvalid"])
+def test_view_kernels_dead_batches(problem, dead):
+    """Every swarm inactive, and no valid particle: plane 0 and the
+    deviation are 0, plane 1 counts every visible camera of the block."""
+    pb = problem[1]
+    B, P = problem[-1].shape[:2]
+    dev = pb.center.device
+    kw = ({"act": torch.zeros((B, 1), dtype=torch.bool, device=dev)}
+          if dead == "act" else
+          {"pvalid": torch.zeros((B, P), dtype=torch.bool, device=dev)})
+    args = _view_inputs(problem, 15, 1, **kw)
+    _, b, _, db = _view_both(args, 15, True)
+    assert not b[0].any() and not db.any()
+    count = args[5].sum(-1).float().cpu().numpy()[:, None, None]
+    np.testing.assert_array_equal(b[1], np.broadcast_to(count, b[1].shape))
+    assert count.any()
 
 
 @pytest.mark.gpu
@@ -239,6 +309,17 @@ def test_kernel_rejects_what_it_does_not_take(problem):
                           pb.cam_mask, 5)
     with pytest.raises(ValueError, match="int32"):
         CF.warped_samples(scene.pyramids, H, pt, lod.long(), pb.cam_mask, 5)
+    # the view kernels keep one record per camera in shared memory: a block
+    # beyond one block's share is refused
+    Cv = CF.SMEM_PER_BLOCK // CF.view_smem_bytes(1, 0, 0) + 1
+    Hv = torch.zeros((2, 3, Cv, 3, 3), device=H.device)
+    with pytest.raises(ValueError, match="shared memory"):
+        CF.view_deviation(scene.pyramids, Hv, pt[:2, None].expand(2, 3, 2),
+                          lod[:2], torch.ones((2, Cv), dtype=torch.bool,
+                                              device=H.device),
+                          torch.ones((2, 3), dtype=torch.bool,
+                                     device=H.device),
+                          torch.zeros((2, 3, 121), device=H.device), 5)
     # the fitness kernel keeps each camera's samples and records in shared
     # memory: a rig beyond one block's share is refused, never truncated
     C = CF.SMEM_PER_BLOCK // CF.fitness_smem_bytes(1, 0) + 1

@@ -15,10 +15,15 @@ Tolerances, with their reasons:
     multiply-adds move the last bits;
   * view fitness vs the port's flat fitness: exact BIG set, 1e-4: only the
     camera sum's grouping differs;
-  * the K2' plain twin vs the sampling stage of ``fitness_view_jnp``: same
-    ok set, 1e-5 (the same f32 formulas, rounded alike);
-  * the reference-window twin vs ``fitness_view_jnp``'s nearest lookups:
+  * the view path's sampling stage (``warped_samples_view``) vs that of
+    ``fitness_view_jnp``: same ok set, 1e-5 (the same f32 formulas,
+    rounded alike);
+  * the reference-window reads vs ``fitness_view_jnp``'s nearest lookups:
     equal (the same pixels read);
+  * the view kernels' plain twins (``view_moments``, ``view_deviation``)
+    vs the same quantities in jnp: counts and reference planes equal, the
+    camera sums 1e-5;
+  * ``Collective.psum_`` vs ``psum``: equal, and in place;
   * NCC vectors vs JAX ``warped_patch_vectors`` on visible cameras of ok
     patches: same ok set, 1e-5 (ROADMAP Queue 3: the reference keeps
     clipped-gather values in masked rows, the port zeroes them);
@@ -51,6 +56,7 @@ from pais_mvs_tpu_torch.models import patch as tpm
 from pais_mvs_tpu_torch.models.camera import build_scene as t_build
 from pais_mvs_tpu_torch.ops import fitness as TF
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
+from pais_mvs_tpu_torch.ops import view_fitness as TVF
 from pais_mvs_tpu_torch.ops.pso import draw_uniforms, gln_pso
 from pais_mvs_tpu_torch.parallel.sharded import patch_seed
 import torch_parity  # noqa: F401  (one torch thread per worker)
@@ -209,21 +215,15 @@ def test_fitness_view_matches_jax_and_flat(setup4, vp2, vp4, vp, against):
     np.testing.assert_allclose(got[~big], want[~big], **tol)
 
 
-def test_sampler_view_twin_matches_jax_stage(setup4):
-    """K2''s plain twin against the sampling stage of fitness_view_jnp
-    (pais_mvs_tpu/ops/view_fitness.py:145-160), written out here with the
-    JAX package's own bilinear_gather, on the same H and window centres;
-    with act and pvalid switching rows off."""
-    _, jscene, tscene, problem = setup4
-    cfg = TCfg(**KW)
-    ref, cm, lod, rays, pos = _flat_inputs(problem)
-    H, pt, pvalid = TF.fitness_geometry(tscene, cfg, ref, cm, lod, rays, pos)
-    act = cm.clone()
-    act[::3, 1] = False
-    got = TF.warped_samples_view(tscene.pyramids, H, pt, lod, act, pvalid,
-                                 cfg.patch_radius).numpy()  # [B, C, P, W2]
-
-    offs = jnp.asarray(JF.window_offsets(cfg.patch_radius))
+def _jax_samples(jscene, H, pt, lod, radius, cams):
+    """The sampling stage of fitness_view_jnp (pais_mvs_tpu/ops/
+    view_fitness.py:145-160), written out with the JAX package's own
+    bilinear_gather on the cameras ``cams`` (a slice of the rig), at the
+    port's H [B, P, c, 3, 3] and window centres pt [B, P, 2]. Returns
+    (vals, vok) [B, P, W2, c] as numpy; vok holds the bounds and w != 0
+    only (no act or pvalid)."""
+    pyr = jscene.pyramids
+    offs = jnp.asarray(JF.window_offsets(radius))
     win = jnp.asarray(pt.numpy())[:, :, None, :] + offs[None, None]
     x, y = win[..., 0][..., None], win[..., 1][..., None]
     Hc = jnp.asarray(H.numpy())[:, :, None]
@@ -233,25 +233,58 @@ def test_sampler_view_twin_matches_jax_stage(setup4):
     v = (Hc[..., 1, 0] * x + Hc[..., 1, 1] * y + Hc[..., 1, 2]) / sw
     B, P, W2, C = w.shape
     vals, vok = JF.bilinear_gather(
-        jscene.pyramids.images, jscene.pyramids.yoff,
+        pyr.images[cams], pyr.yoff,
         jnp.broadcast_to(jnp.arange(C, dtype=jnp.int32), (B, P, W2, C)),
-        jnp.broadcast_to(jnp.asarray(problem["lod"])[:, None, None, None],
+        jnp.broadcast_to(jnp.asarray(np.asarray(lod))[:, None, None, None],
                          (B, P, W2, C)),
-        jnp.stack([u, v], -1), jscene.pyramids.dims, 2.0, 3.0)
-    vok = (np.asarray(vok & (w != 0)) & act.numpy()[:, None, None, :]
+        jnp.stack([u, v], -1), pyr.dims[cams], 2.0, 3.0)
+    return np.asarray(vals), np.asarray(vok & (w != 0))
+
+
+def _jax_ref_windows(jscene, pt, ref_loc, own, lod, radius, cams):
+    """fitness_view_jnp's reference lookups (pais_mvs_tpu/ops/
+    view_fitness.py:135-143, :185-187): the JAX package's nearest_gather at
+    round(pt + offset) on the block ``cams`` of the intensity and edge
+    atlases, kept on the owning rank as own_psum's ``where`` keeps them.
+    Returns [2, B, P, W2] f32 as numpy."""
+    win = (jnp.asarray(pt.numpy())[:, :, None, :]
+           + jnp.asarray(JF.window_offsets(radius))[None, None])
+    B, P, W2 = win.shape[:3]
+    bc = lambda a: jnp.broadcast_to(jnp.asarray(a)[:, None, None],
+                                    (B, P, W2))
+    pyr = jscene.pyramids
+    return np.stack([np.where(own[:, None, None], np.asarray(
+        JF.nearest_gather(atlas[cams], pyr.yoff, bc(ref_loc), bc(lod), win),
+        np.float32), 0.0) for atlas in (pyr.images, pyr.edges)])
+
+
+def test_sampler_view_twin_matches_jax_stage(setup4):
+    """The view path's sampling stage (the plain ``warped_samples_view``
+    that the view kernels' twins build on) against the sampling stage of
+    fitness_view_jnp, on the same H and window centres; with act and
+    pvalid switching rows off."""
+    _, jscene, tscene, problem = setup4
+    cfg = TCfg(**KW)
+    ref, cm, lod, rays, pos = _flat_inputs(problem)
+    H, pt, pvalid = TF.fitness_geometry(tscene, cfg, ref, cm, lod, rays, pos)
+    act = cm.clone()
+    act[::3, 1] = False
+    got = TF.warped_samples_view(tscene.pyramids, H, pt, lod, act, pvalid,
+                                 cfg.patch_radius).numpy()  # [B, C, P, W2]
+    vals, vok = _jax_samples(jscene, H, pt, lod, cfg.patch_radius,
+                             slice(None))
+    vok = (vok & act.numpy()[:, None, None, :]
            & pvalid.numpy()[:, :, None, None]).transpose(0, 3, 1, 2)
-    vals = np.asarray(vals).transpose(0, 3, 1, 2)
+    vals = vals.transpose(0, 3, 1, 2)
     np.testing.assert_array_equal(got > TF.INVALID / 2, vok)
     assert 0.2 < vok.mean() < 1.0
     np.testing.assert_allclose(got[vok], vals[vok], rtol=1e-5, atol=1e-5)
 
 
 def test_reference_windows_twin_matches_jax(setup4):
-    """The reference-window twin against fitness_view_jnp's own lookups
-    (pais_mvs_tpu/ops/view_fitness.py:135-143, :185-187: the JAX package's
-    nearest_gather at round(pt + offset), kept on the owning rank by
-    own_psum's ``where``) on the camera block {2, 3}, with reference
-    cameras on and off the block: equal (the same lookups)."""
+    """The reference-window reads against fitness_view_jnp's own lookups
+    on the camera block {2, 3}, with reference cameras on and off the
+    block: equal (the same lookups)."""
     _, jscene, tscene, problem = setup4
     cfg = TCfg(**KW)
     r = cfg.patch_radius
@@ -265,18 +298,76 @@ def test_reference_windows_twin_matches_jax(setup4):
                                torch.from_numpy(ref_loc),
                                torch.from_numpy(own), torch.from_numpy(lod),
                                r, True).numpy()           # [2, B, P, W2]
-    win = (jnp.asarray(pt.numpy())[:, :, None, :]
-           + jnp.asarray(JF.window_offsets(r))[None, None])
-    P, W2 = win.shape[1:3]
-    bc = lambda a: jnp.broadcast_to(jnp.asarray(a)[:, None, None],
-                                    (B, P, W2))
-    pyr = jscene.pyramids
-    want = np.stack([np.where(own[:, None, None], np.asarray(JF.nearest_gather(
-        atlas[2:4], pyr.yoff, bc(ref_loc), bc(lod), win), np.float32), 0.0)
-        for atlas in (pyr.images, pyr.edges)])
+    want = _jax_ref_windows(jscene, pt, ref_loc, own, lod, r, slice(2, 4))
     np.testing.assert_array_equal(got, want)
     assert 0.2 < (got[0] != 0).mean() < 0.9
     assert (got[1][own] != 0).any()
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("case", ["act", "pvalid", "own"])
+def test_view_kernel_twins_match_jax(setup4, case, grad):
+    """The plain twins of the view fitness's two kernels, ``view_moments``
+    and ``view_deviation``, on the camera block {2, 3}, against the
+    quantities fitness_view_jnp computes from the same sampling stage
+    (pais_mvs_tpu/ops/view_fitness.py:135-172): the valid samples' sum and
+    the invalid visible cameras per pixel, the reference windows, and the
+    deviation from a given mean. Cases: act rows off (a camera of some
+    patches, every camera of inactive swarms), pvalid rows off, reference
+    cameras on and off the block; with and without the edge plane.
+    Planes 1-3 equal; plane 0 and the deviation to 1e-5 (relative above
+    1): the same f32 formulas, summed over two cameras."""
+    _, jscene, tscene, problem = setup4
+    cfg = TCfg(**KW)
+    r = cfg.patch_radius
+    ref, cm, lod, rays, pos = _flat_inputs(problem)
+    H, pt, pvalid = TF.fitness_geometry(tscene, cfg, ref, cm, lod, rays, pos)
+    B = pt.shape[0]
+    cams = slice(2, 4)
+    pyrs = TVF._local_pyramids(tscene.view_block(1, 2).pyramids, 2, 2)
+    Hb = H[:, :, cams].contiguous()
+    mask = cm[:, cams].contiguous()
+    act = mask.clone()
+    ref_glob = ref.numpy()
+    if case == "act":
+        act[::3, 0] = False
+        act[1::3] = False
+    elif case == "pvalid":
+        pvalid = pvalid.clone()
+        pvalid[:, ::2] = False
+        pvalid[3] = False
+    else:
+        ref_glob = np.arange(B, dtype=np.int32) % 4
+    own = (ref_glob >= 2) & (ref_glob < 4)
+    ref_loc = np.clip(ref_glob - 2, 0, 1).astype(np.int32)
+    got = TF.view_moments(pyrs, Hb, pt, lod, act, mask, pvalid,
+                          torch.from_numpy(ref_loc), torch.from_numpy(own),
+                          r, grad).numpy()
+    assert got.shape == (4 if grad else 3, B, P_FIT, (2 * r + 1) ** 2)
+
+    vals, vok = _jax_samples(jscene, Hb, pt, lod, r, cams)   # [B,P,W2,c]
+    ok = (vok & act.numpy()[:, None, None, :]
+          & pvalid.numpy()[:, :, None, None])
+    assert ok.mean() > 0.1
+    total = np.where(ok, vals, 0.0).sum(-1)
+    bad = (mask.numpy()[:, None, None, :] & ~ok).sum(-1).astype(np.float32)
+    refw = _jax_ref_windows(jscene, pt, ref_loc, own, lod.numpy(), r, cams)
+    np.testing.assert_allclose(got[0], total, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[1], bad)
+    np.testing.assert_array_equal(got[2:], refw[:2 if grad else 1])
+    assert (bad == 0).any()
+    if case != "own":
+        assert (bad > 0).any()
+    else:
+        assert own.any() and not own.all()
+        assert not got[2][~own].any() and got[2][own].any()
+
+    mean = total.astype(np.float32) / np.float32(4.0)
+    dev = TF.view_deviation(pyrs, Hb, pt, lod, act, pvalid,
+                            torch.from_numpy(mean), r).numpy()
+    want = np.where(ok, np.abs(vals - mean[..., None]), 0.0).sum(-1)
+    np.testing.assert_allclose(dev, want, rtol=1e-5, atol=1e-5)
+    assert not dev[~ok.any(-1)].any()
 
 
 def test_warped_vectors_view_matches_jax(setup4, batches, vp2):
@@ -303,6 +394,16 @@ def test_view_collectives(vp2):
         np.concatenate([np.full((2, 3), 1.0), np.full((2, 3), 2.0)], 1))
     np.testing.assert_array_equal(_ranks_equal(vp2, "gather_b"),
                                   [True, True, False, True])
+
+
+def test_psum_in_place_matches_psum(vp2):
+    """``Collective.psum_`` reduces the caller's tensor itself (gloo on a
+    host tensor) and gives the values ``psum`` gives."""
+    want = np.arange(6, dtype=np.float32).reshape(2, 3) * 3
+    np.testing.assert_array_equal(_ranks_equal(vp2, "psum_copy"), want)
+    np.testing.assert_array_equal(_ranks_equal(vp2, "psum_inplace"), want)
+    assert _ranks_equal(vp2, "psum_is_input")
+    np.testing.assert_array_equal(_ranks_equal(vp2, "psum_int"), [3, 3, 3])
 
 
 def test_view_primitives_match_flat(setup4, batches, vp2):

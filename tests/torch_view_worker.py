@@ -118,6 +118,15 @@ def job_vp2(rank, world, payload):
     out["gather_f"] = view.all_gather(x, 1).numpy()
     out["gather_b"] = view.all_gather(torch.tensor([rank == 0, True]),
                                       0).numpy()
+    # psum (a copy) and psum_ (in place) on the same rank-coded values
+    y = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (rank + 1)
+    out["psum_copy"] = view.psum(y).numpy()
+    z = y.clone()
+    got = view.psum_(z)
+    out["psum_inplace"] = got.numpy().copy()
+    out["psum_is_input"] = np.array(got.data_ptr() == z.data_ptr())
+    out["psum_int"] = view.psum_(torch.full((3,), rank + 1,
+                                            dtype=torch.int32)).numpy()
 
     v = payload["vectors"]
     vecs, corr, correl, ok = VF.warped_vectors_view(

@@ -5,14 +5,22 @@
 
 Builds bench.py's workload (5 cameras at 640x480, r=15, 15 particles x 30
 iterations doubled for seeds, B=1024, maxLOD 6) with ``pais_mvs_tpu_torch``,
-runs one ``refine_batch`` round to warm up, then profiles one more round
-with ``torch.profiler`` (CPU + CUDA activities). ``--view`` profiles the
+runs one ``refine_batch`` round to warm up, times three more with CUDA
+events (and their peak device memory), then profiles one more round with
+``torch.profiler`` (CPU + CUDA activities). ``--view`` does so for the
 view-sharded round instead (``parallel.sharded.refine_sharded`` in an
-NCCL process group of world size 1, dp=1, vp=1). Prints the round's host
-time, the number of device kernels it ran, the device's busy time (union
-of kernel intervals) and idle share over the round's device span, and the
-kernels by total device time; ``--trace`` also writes the Chrome trace.
-Fails when the profiler records no device activity.
+NCCL process group of world size 1, dp=1, vp=1), and also times one
+``fitness_view`` evaluation on the round's first-evaluation inputs
+(device time, as ``chip_smoke.py`` times kernels). Prints the profiled
+round's host time, the number of device kernels it ran, the device's
+busy time (union of kernel intervals) and idle share over the round's
+device span, the device time of each of the port's kernels
+(``<entry>_kernel`` for every entry of ``ops/cuda_fitness.ENTRIES``: on
+the view round the two view kernels, ``view_moments`` and
+``view_deviation``) and of all other device work, the CUDA runtime's
+synchronising calls in the round (what makes the host wait), and the
+kernels by total device time; ``--trace`` also writes the Chrome trace. Fails when
+the profiler records no device activity.
 """
 
 import argparse
@@ -34,6 +42,7 @@ def main():
                     help="profile the view-sharded round (world of 1)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
+    import chip_smoke
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -82,7 +91,18 @@ def main():
                                             generator=gen)
 
     one_round()
-    torch.cuda.synchronize()
+    # the round unprofiled: CUDA events over 3 rounds, peak device memory
+    round_ms, _, peak_gib, _ = chip_smoke.timed_rounds(one_round, 3)
+    eval_ms = eval_host = None
+    if args.view:
+        # one fitness_view evaluation on the round's first-evaluation inputs
+        from pais_mvs_tpu_torch.ops import view_fitness as VF
+        ref, lod, ray, valid, pos = chip_smoke.first_evaluation(
+            scene, cfg, pb, 2 * cfg.particle_num, gen)
+        evaluate = lambda: VF.fitness_view(block, cfg, ref, pb.cam_mask,
+                                           lod, ray, pos, mesh.view,
+                                           active=valid)
+        eval_ms, eval_host = chip_smoke.time_ms(evaluate, reps=4)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -106,14 +126,19 @@ def main():
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
+    # what blocks the host: the CUDA runtime's synchronising calls
+    syncs = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and "Synchronize" in e.name:
+            t, n = syncs.get(e.name, (0.0, 0))
+            syncs[e.name] = (t + e.cpu_time_total, n + 1)
     span_us = spans[-1][1] - spans[0][0]
     by_name = {}
     for s, e, name in spans:
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + (e - s), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    own = {"fitness": 0.0, "sampler": 0.0, "sampler_view": 0.0,
-           "ref_window": 0.0}
+    own = dict.fromkeys(CF.ENTRIES, 0.0)
     for name, (t, _) in by_name.items():
         for k in own:
             if f"{k}_kernel" in name:
@@ -125,25 +150,33 @@ def main():
           f"{span_us / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, idle share "
           f"{1 - busy / span_us:.3f}; {len(spans)} device activities "
           f"({len(by_name)} distinct)")
-    print(f"K1 fitness_kernel {own['fitness'] / 1e3:.2f} ms, K2 "
-          f"sampler_kernel {own['sampler'] / 1e3:.3f} ms, K2' "
-          f"sampler_view_kernel {own['sampler_view'] / 1e3:.2f} ms, "
-          f"ref_window_kernel {own['ref_window'] / 1e3:.2f} ms, all "
-          f"other device work {(busy - sum(own.values())) / 1e3:.2f} ms")
+    print("; ".join(f"{k}_kernel {t / 1e3:.3f} ms" for k, t in own.items()
+                    if t > 0) + f"; all other device work "
+          f"{(busy - sum(own.values())) / 1e3:.2f} ms")
+    print(f"unprofiled round: {round_ms:.2f} ms by CUDA events (mean of "
+          f"3), peak device memory {peak_gib:.3f} GiB")
+    print("host waits on the device in the round (ms, count): " + (
+        "; ".join(f"{n} {t / 1e3:.2f} ({c})" for n, (t, c) in
+                  sorted(syncs.items(), key=lambda kv: -kv[1][0]))
+        or "none"))
+    if eval_ms is not None:
+        print(f"one fitness_view evaluation (the round's first inputs): "
+              f"{eval_ms:.4f} ms on the device, {eval_host:.4f} ms host")
     print("top device activities by total time (ms, count, name):")
     for name, (t, n) in top[:20]:
         print(f"  {t / 1e3:9.3f} {n:6d}  {name[:110]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({"card": card, "host_ms": host_ms,
+                      "round_ms": round_ms, "peak_gib": peak_gib,
                       "device_span_ms": span_us / 1e3,
                       "device_busy_ms": busy / 1e3,
                       "idle_share": 1 - busy / span_us,
                       "device_activities": len(spans),
-                      "k1_ms": own["fitness"] / 1e3,
-                      "k2_ms": own["sampler"] / 1e3,
-                      "k2_view_ms": own["sampler_view"] / 1e3,
-                      "ref_window_ms": own["ref_window"] / 1e3}))
+                      "kernel_ms": {k: t / 1e3 for k, t in own.items()},
+                      "other_ms": (busy - sum(own.values())) / 1e3,
+                      "fitness_view_eval_ms": eval_ms,
+                      "fitness_view_eval_host_ms": eval_host}))
 
 
 if __name__ == "__main__":
