@@ -65,7 +65,39 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      launches wait behind a ``torch.cuda._sleep`` that outlasts the host's
      enqueue, so the CUDA events around them bracket device work only;
      ``host_ms`` is the host's cost per wrapper call; ``plain_ms`` is what
-     the plain twin's caller waits, host time included.
+     the plain twin's caller waits, host time included;
+ 15. ``refine_batch`` in the expansion mode that ``Reconstructor.expand``
+     runs (normal bounds narrowed around the parent's, P and T not doubled)
+     on the card and on the CPU with the same draws on phase 6's parents
+     (phase 6's bars), then the launches of one full-width expansion chunk
+     at bench.py's shape (K1 = 31, K2 = 1, no other) and its time;
+ 16. the port's main path as a user runs it: ``cli.main(["-r", ...])`` in
+     this process on the pawn rig's real photograph at 2x (1280x960, five
+     cameras, 300 seeds; tools/dist_realistic_2k.py's configuration) from
+     PNG files, an NVM and a config.txt: seed refinement, the wavefront
+     expansion and the writers. Gates: accepted seeds > 40%, the cloud >=
+     20x the accepted seeds, median surface distance < 2.5e-3, every
+     artifact written, exp.mvs read back with stats.json's live count,
+     ``expansion_device_s`` (the refines' launch-to-completion spans by
+     CUDA events) <= ``expansion_s``, K1 and K2 launched and no other
+     kernel; prints refines/s and peak device memory. Then K1 and K2
+     against their plain twins at this path's shapes: the engine's own
+     scene and configuration, built from the files as the CLI builds
+     them, and 1024 of the rig's seeds prepared (the same render with
+     more seeds; its images equal the files'), at P=8 (expansion chunks)
+     and P=16 (seed rounds), phases 2-3's tolerances; and the expansion's
+     device-busy share: the same seeds and expansion once more in this
+     process under ``torch.profiler`` (CUDA activity only), the union of
+     the device's activity intervals over the expansion's wall time;
+ 17. ``cli.main(["-f", "exp.mvs"])`` on phase 16's output: every artifact
+     written; the median after the three structural filters no worse than
+     the expansion's and < 2.5e-3; each filter's removals and
+     neighborPatchFiltering's "avg neighbours" are printed, not gated.
+In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
+slice's main path), beside ``launches_seed_round`` (phase 5) and
+``launches_expansion_chunk`` (phase 15); A's and B's are phase 10's.
+K1's and K2's ``max_abs_err`` is the largest of every check, and
+``max_abs_err_r`` that of the checks at phase 16's shapes alone.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
@@ -74,6 +106,7 @@ import functools
 import json
 import os
 import pickle
+import shutil
 import socket
 import subprocess
 import sys
@@ -590,6 +623,145 @@ def timed_rounds(fn, reps: int = 3):
             torch.cuda.max_memory_allocated() / 2 ** 30, out)
 
 
+# phase 16's configuration: tools/dist_realistic_2k.py:44-47 (batchSize and
+# wavefrontSize stay at the engine's defaults, 1024 and 4096)
+REAL_CONFIG_TXT = ("patchRadius 6\nmaxLOD 6\nparticleNum 8\nmaxIteration 12\n"
+                   "distWeighting 2.0\ncellSize 12\nminCamNum 3\n"
+                   "maxCellPatchNum 2\nneighborRadiusScalar 0.01\n"
+                   "seedRefineRounds 2\n")
+R_ARTIFACTS = ("init.mvs", "seed.mvs", "exp.mvs", "auto_save.mvs",
+               "auto_save.mvs.state.npz", "exp.ply", "exp.psr", "stats.json",
+               "log.txt")
+F_ARTIFACTS = tuple(f"{stem}.{ext}" for stem in (
+    "PMVS_filter1", "PMVS_filter2", "PMVS_filter3", "PMVS_filter_deleted",
+    "PCMVS_filter", "PCMVS_filter_deleted") for ext in ("mvs", "ply"))
+
+
+def write_scene_files(out_dir, scene, config_txt):
+    """The scene as a user hands it to the CLI: PNG images, an NVM (image
+    points centre-origin) and a config.txt. Returns the NVM's path."""
+    import dataclasses
+    from PIL import Image
+    from pais_mvs_tpu_torch.io.nvm import save_nvm
+    params = [dataclasses.replace(p, file_name=os.path.splitext(
+        p.file_name)[0] + ".png") for p in scene.params]
+    for p, img in zip(params, scene.images):
+        Image.fromarray(img).save(os.path.join(out_dir, p.file_name))
+    ipts = scene.seed_img_points.copy()
+    for c, img in enumerate(scene.images):
+        ipts[:, c, 0] -= img.shape[1] // 2
+        ipts[:, c, 1] -= img.shape[0] // 2
+    path = os.path.join(out_dir, "scene.nvm")
+    save_nvm(path, params, scene.seed_centers,
+             np.full((len(scene.seed_centers), 3), 128.0),
+             scene.seed_cam_masks, ipts)
+    with open(os.path.join(out_dir, "config.txt"), "w") as f:
+        f.write(config_txt)
+    return path
+
+
+def run_cli(argv, cwd):
+    """``cli.main(argv)`` in this process with ``cwd`` as the working
+    directory (config.txt resolves from it); returns (exit code, stdout
+    lines of the run)."""
+    import contextlib
+    import io
+    from pais_mvs_tpu_torch import cli
+    here, buf = os.getcwd(), io.StringIO()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        os.chdir(here)
+    return rc, buf.getvalue().splitlines()
+
+
+def removal_counts(lines):
+    """``{what: count}`` of the engine's "<what> removed N" log lines."""
+    out = {}
+    for line in lines:
+        if " removed " in line:
+            what, rest = line.split(" removed ", 1)
+            out[what] = int(rest.split()[0])
+    return out
+
+
+def check_r_shapes(nvm, work, scene_files, scale, n_rows, gen):
+    """K1 and K2 against their plain twins at ``-r``'s shapes: the
+    engine's own scene and configuration, built from the CLI's files
+    (``work`` holds config.txt) as the CLI builds them, and ``n_rows`` of
+    the rig's seeds prepared (the same render as ``scene_files``, at
+    ``scale``, with more seeds; its images must equal the files'), at the expansion's P and
+    the seed rounds' 2P. Returns (the Reconstructor, K1's and K2's max
+    |err|); the Reconstructor holds the files' seeds, not yet refined, and
+    logs into ``work``/profiled."""
+    import torch
+    from pais_mvs_tpu_torch import cli
+    from pais_mvs_tpu_torch.data.realistic import make_realistic_scene
+    from pais_mvs_tpu_torch.models import patch as pm
+    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    dev = gen.device
+    prof_dir = os.path.join(work, "profiled")
+    os.makedirs(prof_dir)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        rec = cli._build_reconstructor(nvm, prof_dir, dev)
+    finally:
+        os.chdir(here)
+    rs, rc = rec.scene, rec.cfg
+    more = make_realistic_scene(num_seeds=n_rows, seed=0, scale=scale)
+    if not all(np.array_equal(a, b) for a, b in zip(more.images,
+                                                    scene_files.images)):
+        fail(f"the {n_rows}-seed render's images differ from the CLI's "
+             f"files")
+    pb = lc.prepare_seeds(rs, rc, pm.from_seeds(
+        more.seed_centers, more.seed_cam_masks, more.seed_img_points,
+        device=dev))
+    err1 = err2 = 0.0
+    for P in (rc.particle_num, 2 * rc.particle_num):
+        sub, ref, lod, ray, pos = selftest_inputs(rs, rc, pb, n_rows, P, P)
+        err1 = max(err1, check_fitness(
+            f"-r shape (B={n_rows}, r={rc.patch_radius}) P={P} around the "
+            f"prepared seeds", rs, rc, ref, sub.cam_mask, lod, ray, pos)[0])
+        ref, lod, ray, act, pos = first_evaluation(rs, rc, pb, P, gen)
+        err1 = max(err1, check_fitness(
+            f"-r shape P={P} first seed-round evaluation", rs, rc, ref,
+            pb.cam_mask, lod, ray, pos, act)[0])
+    n = pb.normal()
+    ref = lc.set_reference_camera(rs, n, pb.cam_mask)
+    lod = lc.set_lod(rs, rc, pb.center, ref)
+    for shift in (0.0, 0.002):
+        err2 = max(err2, check_sampler(
+            f"-r shape (B={n_rows}, r={rc.patch_radius}) shift={shift}", rs,
+            rc, pb.center + shift, n, ref, pb.cam_mask, lod)[0])
+    log(f"-r shape: atlas {tuple(rs.pyramids.images.shape)}, maxLOD "
+        f"{rc.max_lod}, the prepared seeds' LOD levels "
+        f"{np.bincount(lod.cpu().numpy(), minlength=rc.max_lod + 1)}; "
+        f"K1 max |err| {err1:.3g}, K2 {err2:.3g}")
+    return rec, err1, err2
+
+
+def device_busy_s(prof):
+    """(seconds the device was busy, number of device activities) in a
+    ``torch.profiler`` run: the union of its kernel, copy and set
+    intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        fail("the profiler recorded no device activity")
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return (busy + cur_e - cur_s) / 1e6, len(spans)
+
+
 def vp_worker(rank, world, port, out_dir):
     """One rank of phase 12 (``chip_smoke.py --vp-rank RANK WORLD PORT
     DIR``): gloo over localhost, all ranks on card 0; reads its inputs from
@@ -674,6 +846,7 @@ def main():
     from pais_mvs_tpu_torch.data.realistic import make_realistic_scene
     from pais_mvs_tpu_torch.data.synthetic import make_scene
     from pais_mvs_tpu_torch.engine.reconstructor import Reconstructor
+    from pais_mvs_tpu_torch.io import mvsbin
     from pais_mvs_tpu_torch.io.pointcloud import read_ply
     from pais_mvs_tpu_torch.models import patch as pm
     from pais_mvs_tpu_torch.models.camera import build_scene
@@ -1240,18 +1413,185 @@ def main():
     torch.distributed.destroy_process_group()
     torch.cuda.synchronize()
 
+    # 15. the expansion-mode refine (narrowed normal bounds, P and T not
+    #     doubled) on the card vs on the CPU (plain twins), same draws, on
+    #     phase 6's parents; then the launches of one full-width expansion
+    #     chunk at bench.py's shape
+    Pe, Te = cfg.particle_num, cfg.max_iteration
+    edraws = draw_uniforms(Bs, Pe, 3, Te,
+                           generator=torch.Generator().manual_seed(6),
+                           device="cpu")
+    g = lc.refine_batch(scene, cfg, small, 0.005, False, 1,
+                        draws=[type(edraws)(*(t.to(dev) for t in edraws))])
+    c = lc.refine_batch(scene.to("cpu"), cfg, small.to("cpu"), 0.005, False,
+                        1, draws=[edraws])
+    gv, cv = g.batch.valid.cpu().numpy(), c.batch.valid.numpy()
+    bv = gv & cv
+    dc = np.linalg.norm(g.batch.center.cpu().numpy()[bv]
+                        - c.batch.center.numpy()[bv], axis=-1)
+    eagree = float((gv == cv).mean())
+    emdc = float(np.median(dc)) if bv.any() else float("inf")
+    log(f"expansion-mode refine, card vs CPU (B={Bs}, P={Pe}, T={Te}, same "
+        f"draws): valid agreement {eagree:.3f}, accepted {int(gv.sum())} vs "
+        f"{int(cv.sum())}, median centre difference {emdc:.3g}")
+    if (eagree < 0.95 or abs(int(gv.sum()) - int(cv.sum())) > 2
+            or emdc > 1e-4 or bv.sum() < 0.5 * Bs):
+        fail("the card's expansion-mode refine disagrees with the CPU "
+             "reference")
+    torch.cuda.synchronize()
+    CF.reset_launch_counts()
+    t0 = time.time()
+    eres = lc.refine_batch(scene, cfg, pb, 0.005, False, 1, generator=gen)
+    torch.cuda.synchronize()
+    echunk_first_s = time.time() - t0
+    elaunches = dict(CF.LAUNCHES)
+    if elaunches != {**dict.fromkeys(CF.LAUNCHES, 0), "fitness": 1 + Te,
+                     "sampler": 1}:
+        fail(f"expansion chunk launch counts {elaunches}, expected fitness "
+             f"{1 + Te} (1 + {Te} PSO evaluations), sampler 1 and no other")
+    if not bool(torch.isfinite(eres.batch.center[eres.batch.valid]).all()):
+        fail("expansion chunk: non-finite centres among accepted patches")
+    echunk_ms, echunk_host, echunk_mem, _ = timed_rounds(
+        lambda: lc.refine_batch(scene, cfg, pb, 0.005, False, 1,
+                                generator=gen), reps)
+    log(f"expansion chunk at bench.py's shape (B={B}, P={Pe}, T={Te}): "
+        f"launches {elaunches}; first run {echunk_first_s:.2f} s, then "
+        f"{echunk_ms:.2f} ms per chunk (CUDA events, mean of {reps}), host "
+        f"clock {echunk_host:.2f} ms, peak device memory {echunk_mem:.3f} "
+        f"GiB; accepted {int(eres.batch.valid.sum())}/{B}")
+
+    # 16. -r through the port's CLI, in this process, on the pawn rig's
+    #     real photograph at 1280x960 (5 cameras, 300 seeds)
+    t0 = time.time()
+    rsc2 = make_realistic_scene(num_seeds=300, seed=0, scale=2)
+    n_seeds = len(rsc2.seed_centers)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    nvm = write_scene_files(work, rsc2, REAL_CONFIG_TXT)
+    log(f"real-photo scene at 2x: {rsc2.images[0].shape[1]}x"
+        f"{rsc2.images[0].shape[0]}, {len(rsc2.params)} cameras, {n_seeds} "
+        f"seeds, written as PNG + NVM in {time.time() - t0:.1f} s")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    CF.reset_launch_counts()
+    t0 = time.time()
+    rc, r_out = run_cli(["-r", nvm, "-o", work], work)
+    torch.cuda.synchronize()
+    r_s = time.time() - t0
+    r_launches = dict(CF.LAUNCHES)
+    r_mem = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    missing = [a for a in R_ARTIFACTS
+               if not os.path.exists(os.path.join(work, a))]
+    if rc != 0 or missing:
+        fail(f"-r: exit code {rc}, artifacts missing {missing}")
+    with open(os.path.join(work, "stats.json")) as f:
+        st = json.load(f)
+    exp = mvsbin.read_mvs(os.path.join(work, "exp.mvs")).patches
+    n_acc, n_exp = st["seed_accepted"], len(exp.centers)
+    exp_med = float(np.median(rsc2.surface_distance(exp.centers)))
+    rounds_run = sum(1 for line in r_out if line.startswith("round "))
+    log(f"-r (CLI, in process): {r_s:.1f} s; seeds {n_acc}/{n_seeds} "
+        f"accepted in {st['seed_refine_s']:.2f} s; expansion {n_exp} "
+        f"patches ({n_exp / max(n_acc, 1):.1f}x the seeds) in "
+        f"{st['expansion_s']:.2f} s over {rounds_run} rounds, "
+        f"{st['expansion_refined']} refined, {st['expansion_pps']:.1f} "
+        f"refines/s; the refines' launch-to-completion spans (CUDA events, "
+        f"expansion_device_s) {st['expansion_device_s']:.3f} s = "
+        f"{st['expansion_device_s'] / max(st['expansion_s'], 1e-9):.3f} of "
+        f"the expansion; median surface distance {exp_med:.6f}; peak "
+        f"device memory {r_mem:.3f} GiB above the script's "
+        f"{base_mem / 2 ** 30:.3f}; launches {r_launches}")
+    if any(r_launches[k] for k in r_launches
+           if k not in ("fitness", "sampler")) or \
+            not (r_launches["fitness"] and r_launches["sampler"]):
+        fail(f"-r launched {r_launches}: K1 and K2 each at least once and "
+             f"no other kernel expected")
+    if not n_acc > 0.4 * n_seeds:
+        fail(f"-r: {n_acc}/{n_seeds} seeds accepted (gate > 40%)")
+    if not n_exp >= 20 * n_acc:
+        fail(f"-r: the cloud grew to {n_exp} from {n_acc} seeds (gate: "
+             f"20x)")
+    if not exp_med < 2.5e-3:
+        fail(f"-r: median surface distance {exp_med:.6f} (gate < 2.5e-3)")
+    if st["live_patches"] != n_exp or not np.isfinite(exp.centers).all():
+        fail(f"-r: exp.mvs holds {n_exp} patches, stats.json "
+             f"{st['live_patches']} live (or non-finite centres)")
+    if not st["expansion_device_s"] <= st["expansion_s"]:
+        fail("-r: expansion_device_s exceeds expansion_s")
+
+    #     K1 and K2 against their twins at this path's shapes
+    rec, err1_r, err2_r = check_r_shapes(nvm, work, rsc2, 2, B, gen)
+    err1, err2 = max(err1, err1_r), max(err2, err2_r)
+
+    #     the expansion's device-busy share: the same seeds and expansion
+    #     once more, under the profiler (CUDA activity only)
+    from torch.profiler import ProfilerActivity, profile
+    prof_dir = os.path.join(work, "profiled")
+    rec.refine_seeds()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n_prof = rec.expand(autosave_path=os.path.join(prof_dir,
+                                                       "auto_save.mvs"))
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    busy_s, n_act = device_busy_s(prof)
+    del prof
+    log(f"-r expansion under the profiler: {n_prof} patches (the CLI run: "
+        f"{n_exp}) in {p_wall:.3f} s (unprofiled {st['expansion_s']:.3f} "
+        f"s); device busy {busy_s:.3f} s over {n_act} device activities = "
+        f"busy share {busy_s / p_wall:.3f}, idle share "
+        f"{1 - busy_s / p_wall:.3f}; the refines' launch-to-completion "
+        f"spans {rec.stats['expansion_device_s']:.3f} s; trace read in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not 0 < busy_s <= p_wall:
+        fail(f"-r expansion: device busy {busy_s:.3f} s outside (0, "
+             f"{p_wall:.3f}] s")
+    del rec
+
+    # 17. -f on phase 16's exp.mvs
+    t0 = time.time()
+    rc, f_out = run_cli(["-f", os.path.join(work, "exp.mvs"), "-o", work],
+                        work)
+    f_s = time.time() - t0
+    missing = [a for a in F_ARTIFACTS
+               if not os.path.exists(os.path.join(work, a))]
+    if rc != 0 or missing:
+        fail(f"-f: exit code {rc}, artifacts missing {missing}")
+    removed = removal_counts(f_out)
+    f3 = mvsbin.read_mvs(os.path.join(work, "PMVS_filter3.mvs")).patches
+    pc = mvsbin.read_mvs(os.path.join(work, "PCMVS_filter.mvs")).patches
+    f3_med = float(np.median(rsc2.surface_distance(f3.centers)))
+    avg_nb = [line for line in f_out if "avg neighbours" in line]
+    log(f"-f (CLI, in process): {f_s:.1f} s; removed {removed}; "
+        f"{len(f3.centers)} patches after the three structural filters, "
+        f"median {f3_med:.6f} (expansion {exp_med:.6f}); "
+        f"neighborPatchFiltering leaves {len(pc.centers)} "
+        f"({avg_nb[0] if avg_nb else 'no avg neighbours line'})")
+    if not (f3_med <= exp_med and f3_med < 2.5e-3 and len(f3.centers)):
+        fail(f"-f: PMVS_filter3 median {f3_med:.6f} against the expansion's "
+             f"{exp_med:.6f} (gate: no worse, < 2.5e-3)")
+    shutil.rmtree(work)
+
     kernels = [
         {"name": "fused_fitness", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/fitness.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:552",
-         "launches": launches["fitness"], "max_abs_err": err1,
+         "launches": r_launches["fitness"],
+         "launches_seed_round": launches["fitness"],
+         "launches_expansion_chunk": elaunches["fitness"],
+         "max_abs_err": err1, "max_abs_err_r": err1_r,
          "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
         {"name": "warped_sampler", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
-         "launches": launches["sampler"], "max_abs_err": err2,
+         "launches": r_launches["sampler"],
+         "launches_seed_round": launches["sampler"],
+         "launches_expansion_chunk": elaunches["sampler"],
+         "max_abs_err": err2, "max_abs_err_r": err2_r,
          "ms": k2_ms, "host_ms": k2_host, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "view_moments", "route": "cuda",

@@ -1,6 +1,6 @@
-"""PyTorch port: the patch lifecycle and the whole seed-refinement slice
-(``refine_batch`` in seed mode) against the JAX package on the CPU, on the
-same atlas (``convert.py``) and the same seed batch.
+"""PyTorch port: the patch lifecycle and the whole refinement slice
+(``refine_batch`` in seed and in expansion mode) against the JAX package on
+the CPU, on the same atlas (``convert.py``) and the same seed batch.
 
 Tolerances:
   * the per-step primitives are f32 formulas on identical inputs:
@@ -131,16 +131,23 @@ def test_runtime_filter_and_rehydrate_match(both):
     assert 0 < int(tk.sum()) < B
 
 
-@pytest.mark.parametrize("rounds", [2])
-def test_refine_batch_slice_matches_jax(tiny_scene, both, rounds):
-    """The whole seed-refinement slice at tiny size, injected draws."""
+@pytest.mark.parametrize("is_seed,rounds", [
+    pytest.param(True, 2, id="2"),
+    pytest.param(False, 1, id="expansion-1")])
+def test_refine_batch_slice_matches_jax(tiny_scene, both, is_seed, rounds):
+    """The whole refinement slice at tiny size, injected draws: seed mode
+    (full normal range, doubled swarms) and the expansion mode that
+    ``Reconstructor.expand`` runs (normal bounds narrowed to
+    +-pi/reduceNormalRange around the parent's, one round, P and T not
+    doubled). The parents' normals are set (prepare_seeds)."""
     jscene, jcfg, jpb, tscene, tcfg, tpb = both
     key = jax.random.PRNGKey(0)
     B = jpb.center.shape[0]
-    P, T = 2 * KW["particle_num"], 2 * KW["max_iteration"]
+    k = 2 if is_seed else 1
+    P, T = k * KW["particle_num"], k * KW["max_iteration"]
     jres = jlc.refine_batch(jscene, jcfg, jax.tree.map(jnp.asarray, jpb),
-                            key, jnp.float32(0.005), True, rounds)
-    tres = tlc.refine_batch(tscene, tcfg, tpb, 0.005, True, rounds,
+                            key, jnp.float32(0.005), is_seed, rounds)
+    tres = tlc.refine_batch(tscene, tcfg, tpb, 0.005, is_seed, rounds,
                             draws=refine_draws(key, rounds, B, P, T))
     jv = np.asarray(jres.batch.valid)
     tv = tres.batch.valid.numpy()
