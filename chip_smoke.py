@@ -93,11 +93,43 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      written; the median after the three structural filters no worse than
      the expansion's and < 2.5e-3; each filter's removals and
      neighborPatchFiltering's "avg neighbours" are printed, not gated.
+ 18. feature seeding at full width on phase 16's scene (1280x960, five
+     cameras): ``generate_seed_patches`` twice on the card (bit-equal) and
+     once on the CPU (the same seed count and camera sets, centres within
+     1e-4); the count within 5% of the JAX package's 363 and the median
+     surface distance < 1e-3; the device stages' times; then
+     ``cli.main(["-r", "nopts.nvm"])`` twice on phase 16's PNGs and config
+     with an NVM written without points (feature-seeded): exp.mvs
+     bit-equal across the two runs, and phase 16's ``-r`` once more,
+     bit-equal to phase 16's exp.mvs; phase 16's gates (accepted > 40%,
+     the cloud >= 20x, median < 2.5e-3), K1 and K2 launched and no other;
+ 19. ``bundle_adjust`` on the rig's 300 tracks with cameras 1-4 perturbed
+     (numpy seed 0: rotation N(0, 0.005), centre N(0, 0.01)) on the card
+     and on the CPU: the start of the RMS history to 1e-5 relative, the
+     final RMS < 1e-3 px on both, R and the scale-aligned centres within
+     1e-4 (the intermediate RMS values hang on f32 summation order, so
+     they are printed, not gated); ms per LM iteration;
+     ``bundle_adjust_sharded`` through an NCCL world of 1 bit-equal to
+     ``bundle_adjust``; then ``cli.main(["-r", nvm, "-b"])``: the RMS line,
+     every artifact, phase 16's gates, K1 and K2 and no other kernel;
+ 20. ``cli.main(["-v", "exp.mvs", "--patch-id", N, "--reoptimize",
+     "--profile", DIR])`` on phase 16's output: every artifact (snapshot
+     PLY, HTML viewer, the before and after PNGs) and a trace file in DIR,
+     the re-optimised patch printed with its fitness before and after;
+     ``warped_windows`` on the card against the CPU (same NaN and valid
+     sets, within 0.1 of 255 intensity levels, ``WINDOW_TOL``); K1 and K2
+     against their twins at B = 1 (the ``--reoptimize`` shape), phases
+     2-3's tolerances;
+ 21. ``cli.main(["-a", "exp.mvs"])``: animate.ply holds exp.mvs's live
+     patches with ``order`` 0..N-1 (scaled to [0, 1]).
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
-slice's main path), beside ``launches_seed_round`` (phase 5) and
-``launches_expansion_chunk`` (phase 15); A's and B's are phase 10's.
-K1's and K2's ``max_abs_err`` is the largest of every check, and
-``max_abs_err_r`` that of the checks at phase 16's shapes alone.
+slice's main path), beside ``launches_seed_round`` (phase 5),
+``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
+18's first -r), ``launches_refine_poses_r`` (phase 19's -r -b) and
+``launches_reoptimize`` (phase 20's -v); A's and B's are phase 10's.
+K1's and K2's ``max_abs_err`` is the largest of every check,
+``max_abs_err_r`` that of the checks at phase 16's shapes alone and
+``max_abs_err_b1`` that of phase 20's checks at B = 1.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
@@ -760,6 +792,70 @@ def device_busy_s(prof):
         else:
             cur_e = max(cur_e, e)
     return (busy + cur_e - cur_s) / 1e6, len(spans)
+
+
+# phase 18's yardstick: the JAX package's feature seeding on this scene
+# (generate_seed_patches on the CPU, MvsConfig(min_cam_num=3), epipolar
+# tolerance 3.0 px): 363 seeds at median surface distance 4.33e-4
+JAX_FEATURE_SEEDS, JAX_FEATURE_MEDIAN = 363, 4.33e-4
+# phase 20's bar for warped_windows, card against CPU, in 0..255 intensity
+# levels: the two devices compose the homographies with sums in another
+# order, so the samples land ~1e-4 px apart at 1280x960, and the photo's
+# gradients (up to ~250 levels/px) turn that into up to a few hundredths
+# of a level; 0.1 stays far under the one level the PNG mosaics resolve
+WINDOW_TOL = 0.1
+
+
+def feature_stage_ms(images, dev):
+    """(detection + description ms, matching ms) of generate_seed_patches'
+    device stages on ``images``, host clock around synchronised calls."""
+    import torch
+    from pais_mvs_tpu_torch.features import matching as mat
+    from pais_mvs_tpu_torch.features.seeding import detect_and_describe
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kds = [detect_and_describe(img, dev) for img in images]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    C = len(images)
+    Fs = [[np.eye(3)] * C for _ in range(C)]
+    mat.match_all_pairs([d for _, d in kds], [k.xy for k, _ in kds],
+                        [k.mask for k, _ in kds], Fs)
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def ba_problem(scene_files, seed=0):
+    """The rig's bundle-adjustment problem over its seed tracks, with
+    cameras 1.. perturbed from a numpy seed (rotation N(0, 0.005) rad per
+    axis, centre N(0, 0.01)); returns (float32 fields, true R, true
+    centres)."""
+    import torch
+    from pais_mvs_tpu_torch.models.camera import _np_quat_to_rotation
+    from pais_mvs_tpu_torch.ops.bundle import _exp_so3
+    ps, ims = scene_files.params, scene_files.images
+    R = np.stack([_np_quat_to_rotation(np.asarray(p.quaternion, float))
+                  for p in ps])
+    cen = np.stack([np.asarray(p.center, float) for p in ps])
+    rng = np.random.default_rng(seed)
+    w = rng.normal(0, 0.005, (len(ps), 3))
+    w[0] = 0
+    dc = rng.normal(0, 0.01, (len(ps), 3))
+    dc[0] = 0
+    fields = [_exp_so3(torch.tensor(w)).numpy() @ R, cen + dc,
+              np.stack([np.asarray(p.focal, float) for p in ps]),
+              np.stack([[im.shape[1] >> 1, im.shape[0] >> 1] for im in ims]),
+              scene_files.seed_centers, scene_files.seed_img_points,
+              scene_files.seed_cam_masks]
+    return ([f if f.dtype == bool else f.astype(np.float32)
+             for f in fields], R, cen)
+
+
+def scale_aligned(c, ref):
+    """Centres ``c`` scaled about camera 0 onto ``ref``'s scale (the gauge
+    bundle adjustment leaves free)."""
+    s = np.linalg.norm(ref[1] - ref[0]) / np.linalg.norm(c[1] - c[0])
+    return (c - c[0]) * s + ref[0]
 
 
 def vp_worker(rank, world, port, out_dir):
@@ -1572,6 +1668,294 @@ def main():
     if not (f3_med <= exp_med and f3_med < 2.5e-3 and len(f3.centers)):
         fail(f"-f: PMVS_filter3 median {f3_med:.6f} against the expansion's "
              f"{exp_med:.6f} (gate: no worse, < 2.5e-3)")
+
+    # 18. feature seeding at full width on the pawn rig at 2x: twice on the
+    #     card (bit-equal), once on the CPU (same seeds), then -r on an NVM
+    #     without points through the CLI
+    from pais_mvs_tpu_torch.features import generate_seed_patches
+    from pais_mvs_tpu_torch.io import nvm as nvm_io
+    fcfg = MvsConfig(min_cam_num=3)
+    feats, feat_s = [], []
+    for where in (dev, dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats.append(generate_seed_patches(rsc2.params, rsc2.images, fcfg,
+                                           max_epipolar_dist=3.0,
+                                           device=where))
+        torch.cuda.synchronize()
+        feat_s.append(time.perf_counter() - t0)
+    (fc, fm, fi, fcol), again, cpu = feats
+    n_feat = len(fc)
+    feat_med = float(np.median(rsc2.surface_distance(fc)))
+    det_ms, match_ms = feature_stage_ms(rsc2.images, dev)
+    views = np.bincount(fm.sum(1), minlength=len(rsc2.params) + 1)[3:]
+    log(f"feature seeding on the card: {n_feat} seeds (JAX CPU record "
+        f"{JAX_FEATURE_SEEDS}), median surface distance {feat_med:.6g} "
+        f"(record {JAX_FEATURE_MEDIAN:g}), seen in 3/4/5 views "
+        f"{'/'.join(map(str, views))}; {feat_s[0]:.3f} s first run, "
+        f"{feat_s[1]:.3f} s second (detection + description "
+        f"{det_ms:.1f} ms, matching {match_ms:.1f} ms), CPU "
+        f"{feat_s[2]:.2f} s")
+    if not all(np.array_equal(a, b) for a, b in zip(feats[0], again)):
+        fail("feature seeding: two card runs differ")
+    cdiff = (float(np.abs(fc - cpu[0]).max()) if len(cpu[0]) == n_feat
+             else float("inf"))
+    if len(cpu[0]) != n_feat or not np.array_equal(fm, cpu[1]) or \
+            cdiff > 1e-4:
+        fail(f"feature seeding: card {n_feat} seeds vs CPU {len(cpu[0])}, "
+             f"max centre difference {cdiff:.3g} (gate: same seeds and "
+             f"camera sets, 1e-4)")
+    log(f"feature seeding card vs CPU: same {n_feat} seeds and camera sets, "
+        f"max centre difference {cdiff:.3g}; the two card runs bit-equal")
+    if not (abs(n_feat - JAX_FEATURE_SEEDS) <= 0.05 * JAX_FEATURE_SEEDS
+            and feat_med < 1e-3):
+        fail(f"feature seeding: {n_feat} seeds at median {feat_med:.6g} "
+             f"(gate: within 5% of {JAX_FEATURE_SEEDS}, median < 1e-3)")
+    nopts = os.path.join(work, "nopts.nvm")
+    nvm_io.save_nvm(nopts, nvm_io.load_nvm(nvm).cameras)
+    feat_runs = []
+    for k in range(2):
+        out_k = os.path.join(work, f"features_r{k}")
+        os.makedirs(out_k)
+        CF.reset_launch_counts()
+        t0 = time.time()
+        rc, fr_out = run_cli(["-r", nopts, "-o", out_k], work)
+        torch.cuda.synchronize()
+        feat_runs.append((time.time() - t0, dict(CF.LAUNCHES), out_k))
+        if rc != 0:
+            fail(f"-r nopts.nvm: exit code {rc}")
+    fr_s, fr_launches, fdir = feat_runs[0]
+    # determinism of -r on the card, feature-seeded or not: the two runs
+    # above, and phase 16's -r once more
+    again = os.path.join(work, "r_again")
+    os.makedirs(again)
+    t0 = time.time()
+    rc, _ = run_cli(["-r", nvm, "-o", again], work)
+    again_s = time.time() - t0
+    for a, b, what in ((fdir, feat_runs[1][2], "-r nopts.nvm"),
+                       (work, again, "-r scene.nvm (phase 16)")):
+        with open(os.path.join(a, "exp.mvs"), "rb") as f1, \
+                open(os.path.join(b, "exp.mvs"), "rb") as f2:
+            if rc != 0 or f1.read() != f2.read():
+                fail(f"{what}: two runs on the card wrote different "
+                     f"exp.mvs bytes (exit code {rc})")
+    log(f"-r determinism on the card: phase 16's -r again in "
+        f"{again_s:.1f} s, exp.mvs bit-equal; the feature-seeded pair "
+        f"bit-equal")
+    with open(os.path.join(fdir, "stats.json")) as f:
+        fst = json.load(f)
+    fexp = mvsbin.read_mvs(os.path.join(fdir, "exp.mvs")).patches
+    n_fs = int([ln for ln in fr_out if "feature seeding:" in ln][0]
+               .split("feature seeding:")[1].split()[0])
+    f_acc, f_n = fst["seed_accepted"], len(fexp.centers)
+    f_med = float(np.median(rsc2.surface_distance(fexp.centers)))
+    log(f"-r nopts.nvm (CLI, feature-seeded): {fr_s:.1f} s (second run "
+        f"{feat_runs[1][0]:.1f} s, exp.mvs bit-equal); {n_fs} seeds, "
+        f"{f_acc} accepted; the cloud {f_n} patches "
+        f"({f_n / max(f_acc, 1):.1f}x), median {f_med:.6f}; expansion "
+        f"{fst['expansion_s']:.2f} s; feature seeding "
+        f"{feat_s[1]:.3f} s = {feat_s[1] / fr_s:.3f} of the run (JAX CPU "
+        f"record: 283/363 accepted, 11,029 patches, median 1.520e-3); "
+        f"launches {fr_launches}")
+    missing = [a for a in R_ARTIFACTS
+               if not os.path.exists(os.path.join(fdir, a))]
+    if missing or n_fs != n_feat:
+        fail(f"-r nopts.nvm: artifacts missing {missing}, {n_fs} seeds "
+             f"(generate_seed_patches: {n_feat})")
+    if any(fr_launches[k] for k in fr_launches
+           if k not in ("fitness", "sampler")) or \
+            not (fr_launches["fitness"] and fr_launches["sampler"]):
+        fail(f"-r nopts.nvm launched {fr_launches}: K1 and K2 expected, "
+             f"no other kernel")
+    if not (f_acc > 0.4 * n_fs and f_n >= 20 * f_acc and f_med < 2.5e-3
+            and fst["live_patches"] == f_n):
+        fail(f"-r nopts.nvm: {f_acc}/{n_fs} accepted, {f_n} patches, "
+             f"median {f_med:.6f} (phase 16's gates)")
+
+    # 19. bundle adjustment: the rig's 300 tracks with cameras 1-4
+    #     perturbed, on the card and on the CPU; sharded through an NCCL
+    #     world of 1; then -r -b through the CLI
+    from pais_mvs_tpu_torch.ops.bundle import (BaProblem, bundle_adjust,
+                                               bundle_adjust_sharded)
+    ba_fields, R_true, c_true = ba_problem(rsc2)
+    on = lambda where: BaProblem(*(torch.as_tensor(f, device=where)
+                                   for f in ba_fields))
+    ba_card = bundle_adjust(on(dev), num_iters=8)
+    ba_cpu = bundle_adjust(on("cpu"), num_iters=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        bundle_adjust(on(dev), num_iters=8)
+    torch.cuda.synchronize()
+    t8 = (time.perf_counter() - t0) / 3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        bundle_adjust(on(dev), num_iters=0)
+    torch.cuda.synchronize()
+    ba_ms_it = (t8 - (time.perf_counter() - t0) / 3) / 8 * 1e3
+    h_card = ba_card.rms_history.cpu().numpy()
+    h_cpu = ba_cpu.rms_history.numpy()
+    c_card = ba_card.center.cpu().numpy()
+    dR = float(np.abs(ba_card.R.cpu().numpy() - ba_cpu.R.numpy()).max())
+    dC = float(np.abs(scale_aligned(c_card, ba_cpu.center.numpy())
+                      - ba_cpu.center.numpy()).max())
+    log(f"bundle adjustment on the card ({len(ba_fields[4])} tracks, 5 "
+        f"cameras, 8 LM iterations): RMS history {h_card.tolist()} px; "
+        f"the CPU's {h_cpu.tolist()}; JAX CPU record 9.2866 -> 0.0949 -> "
+        f"7.81e-5 -> ... -> 4.73e-5 px; {t8 * 1e3:.1f} ms per solve, "
+        f"{ba_ms_it:.2f} ms per LM iteration (host clock, synchronised); "
+        f"card vs CPU: R {dR:.3g}, scale-aligned centres {dC:.3g}; max "
+        f"centre error {np.abs(ba_fields[1] - c_true).max():.4f} before, "
+        f"{np.abs(c_card - c_true).max():.4f} after (gauge free up to "
+        f"scale), scale-aligned "
+        f"{np.abs(scale_aligned(c_card, c_true) - c_true).max():.3g}")
+    if not (abs(h_card[0] - h_cpu[0]) <= 1e-5 * h_cpu[0]
+            and h_card[-1] < 1e-3 and h_cpu[-1] < 1e-3
+            and dR < 1e-4 and dC < 1e-4):
+        fail("bundle adjustment: the card's solve misses the CPU's (start "
+             "1e-5 relative, final RMS < 1e-3 px, R and scale-aligned "
+             "centres 1e-4)")
+    init_distributed(f"tcp://localhost:{free_port()}", 0, 1,
+                     backend="nccl", device="cuda")
+    ba_sh = bundle_adjust_sharded(on(dev), make_mesh((1, 1)).patch,
+                                  num_iters=8)
+    torch.distributed.destroy_process_group()
+    if not all(torch.equal(a, b) for a, b in zip(ba_sh, ba_card)):
+        fail("bundle_adjust_sharded (NCCL world of 1) differs from "
+             "bundle_adjust")
+    log("bundle_adjust_sharded through an NCCL world of 1: bit-equal to "
+        "bundle_adjust")
+    bdir = os.path.join(work, "refine_poses")
+    os.makedirs(bdir)
+    CF.reset_launch_counts()
+    t0 = time.time()
+    rc, b_out = run_cli(["-r", nvm, "-b", "-o", bdir], work)
+    torch.cuda.synchronize()
+    b_s = time.time() - t0
+    b_launches = dict(CF.LAUNCHES)
+    rms_line = [ln for ln in b_out if ln.startswith("pose refinement:")]
+    with open(os.path.join(bdir, "stats.json")) as f:
+        bst = json.load(f)
+    bexp = mvsbin.read_mvs(os.path.join(bdir, "exp.mvs")).patches
+    b_acc, b_n = bst["seed_accepted"], len(bexp.centers)
+    b_med = float(np.median(rsc2.surface_distance(bexp.centers)))
+    log(f"-r -b (CLI): {b_s:.1f} s; {rms_line}; {b_acc}/{n_seeds} seeds "
+        f"accepted, the cloud {b_n} patches, median {b_med:.6f} (JAX CPU "
+        f"record: 144/300, 11,268, 1.577e-3); launches {b_launches}")
+    missing = [a for a in R_ARTIFACTS
+               if not os.path.exists(os.path.join(bdir, a))]
+    if rc != 0 or missing or len(rms_line) != 1:
+        fail(f"-r -b: exit code {rc}, artifacts missing {missing}, RMS "
+             f"lines {rms_line}")
+    if any(b_launches[k] for k in b_launches
+           if k not in ("fitness", "sampler")) or \
+            not (b_launches["fitness"] and b_launches["sampler"]):
+        fail(f"-r -b launched {b_launches}: K1 and K2 expected, no other")
+    if not (b_acc > 0.4 * n_seeds and b_n >= 20 * b_acc and b_med < 2.5e-3
+            and bst["live_patches"] == b_n):
+        fail(f"-r -b: {b_acc}/{n_seeds} accepted, {b_n} patches, median "
+             f"{b_med:.6f} (phase 16's gates)")
+
+    # 20. -v exp.mvs --patch-id N --reoptimize --profile DIR on phase 16's
+    #     output; warped_windows on the card against the CPU; K1 and K2
+    #     against their twins at B = 1
+    from pais_mvs_tpu_torch import cli
+    from pais_mvs_tpu_torch import diagnostics as TD
+    exp_path = os.path.join(work, "exp.mvs")
+    pid = n_exp // 2
+    vdir, pdir = os.path.join(work, "view"), os.path.join(work, "prof")
+    os.makedirs(vdir)
+    CF.reset_launch_counts()
+    t0 = time.time()
+    rc, v_out = run_cli(["-v", exp_path, "--patch-id", str(pid),
+                         "--reoptimize", "--profile", pdir, "-o", vdir],
+                        work)
+    torch.cuda.synchronize()
+    v_s = time.time() - t0
+    v_launches = dict(CF.LAUNCHES)
+    v_art = ["view_snapshot.ply", "view.html"] + [
+        f"patch{i}_{k}.png" for i in (pid, pid * 1000000 + 1)
+        for k in ("views", "error")]
+    missing = [a for a in v_art if not os.path.exists(os.path.join(vdir, a))]
+    reopt = [ln for ln in v_out if ln.startswith("re-optimized:")]
+    if rc != 0 or missing or len(reopt) != 1 or \
+            not os.path.exists(os.path.join(pdir, "trace.json")):
+        fail(f"-v: exit code {rc}, artifacts missing {missing}, "
+             f"re-optimized lines {reopt}, trace in {os.listdir(pdir)}")
+    if any(v_launches[k] for k in v_launches
+           if k not in ("fitness", "sampler")) or \
+            not (v_launches["fitness"] and v_launches["sampler"]):
+        fail(f"-v --reoptimize launched {v_launches}: K1 and K2 expected")
+    log(f"-v --patch-id {pid} --reoptimize --profile (CLI): {v_s:.1f} s; "
+        f"{reopt[0]}; trace "
+        f"{os.path.getsize(os.path.join(pdir, 'trace.json'))} bytes; "
+        f"launches {v_launches}")
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        vrec = cli._build_reconstructor(exp_path, vdir, dev)
+    finally:
+        os.chdir(here)
+    vs, vc = vrec.scene, vrec.cfg
+    one = pm.take(vrec._seed_pb, [pid])
+    h1 = one.numpy()
+    wargs = (h1["center"][0], h1["normal_sph"][0], int(h1["ref_cam"][0]),
+             h1["cam_mask"][0], int(h1["lod"][0]))
+    vs_cpu = vs.to("cpu")
+    worst = 0.0
+    for shift in (0.0, 0.05):
+        wa = (wargs[0] + np.float32(shift),) + wargs[1:]
+        wg, okg = TD.warped_windows(vs, vc, *wa)
+        wc, okc = TD.warped_windows(vs_cpu, vc, *wa)
+        if not (np.array_equal(okg, okc)
+                and np.array_equal(np.isnan(wg), np.isnan(wc))):
+            fail(f"warped_windows shift={shift}: the card's NaN or valid "
+                 f"set differs from the CPU's")
+        fin = ~np.isnan(wg)
+        d = np.abs(wg[fin] - wc[fin])
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+        if d.size and float(d.max()) > WINDOW_TOL:
+            fail(f"warped_windows shift={shift}: max |err| {d.max():.3g} "
+                 f"(gate {WINDOW_TOL} of 255 intensity levels)")
+        log(f"warped_windows shift={shift}: {int(fin.sum())}/{fin.size} "
+            f"samples in frame on both, NaN set equal, max |err| "
+            f"{float(d.max()) if d.size else 0.0:.3g}")
+    err1_v = err2_v = 0.0
+    sub, ref, lod, ray, pos = selftest_inputs(vs, vc, one, 1,
+                                              2 * vc.particle_num, 11)
+    err1_v = max(err1_v, check_fitness(
+        f"B=1 (the -v --reoptimize shape) P={2 * vc.particle_num} around "
+        f"patch {pid}", vs, vc, ref, sub.cam_mask, lod, ray, pos)[0])
+    ref, lod, ray, act, pos = first_evaluation(vs, vc, one,
+                                               2 * vc.particle_num, gen)
+    err1_v = max(err1_v, check_fitness(
+        "B=1 first seed-mode evaluation", vs, vc, ref, one.cam_mask, lod,
+        ray, pos, act)[0])
+    n1 = one.normal()
+    ref = lc.set_reference_camera(vs, n1, one.cam_mask)
+    lod = lc.set_lod(vs, vc, one.center, ref)
+    for shift in (0.0, 0.002):
+        err2_v = max(err2_v, check_sampler(
+            f"B=1 shift={shift}", vs, vc, one.center + shift, n1, ref,
+            one.cam_mask, lod)[0])
+    err1, err2 = max(err1, err1_v), max(err2, err2_v)
+    del vrec, vs, vs_cpu
+
+    # 21. -a exp.mvs: the insertion-order replay PLY
+    adir = os.path.join(work, "animate")
+    os.makedirs(adir)
+    rc, _ = run_cli(["-a", exp_path, "-o", adir], work)
+    with open(os.path.join(adir, "animate.ply")) as f:
+        lines = f.read().splitlines()
+    body = lines[lines.index("end_header") + 1:] if rc == 0 else []
+    order = np.array([float(ln.split()[-1]) for ln in body])
+    n_a = len(body)
+    if rc != 0 or n_a != st["live_patches"] or not np.allclose(
+            order, np.arange(n_a) / max(n_a - 1, 1), atol=1e-6):
+        fail(f"-a: exit code {rc}, {n_a} points for {st['live_patches']} "
+             f"live patches, or the order is not 0..N-1")
+    log(f"-a (CLI): animate.ply holds exp.mvs's {n_a} patches, order "
+        f"{order[0]:g}..{order[-1]:g} in insertion order")
     shutil.rmtree(work)
 
     kernels = [
@@ -1581,7 +1965,11 @@ def main():
          "launches": r_launches["fitness"],
          "launches_seed_round": launches["fitness"],
          "launches_expansion_chunk": elaunches["fitness"],
+         "launches_features_r": fr_launches["fitness"],
+         "launches_refine_poses_r": b_launches["fitness"],
+         "launches_reoptimize": v_launches["fitness"],
          "max_abs_err": err1, "max_abs_err_r": err1_r,
+         "max_abs_err_b1": err1_v,
          "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
@@ -1591,7 +1979,11 @@ def main():
          "launches": r_launches["sampler"],
          "launches_seed_round": launches["sampler"],
          "launches_expansion_chunk": elaunches["sampler"],
+         "launches_features_r": fr_launches["sampler"],
+         "launches_refine_poses_r": b_launches["sampler"],
+         "launches_reoptimize": v_launches["sampler"],
          "max_abs_err": err2, "max_abs_err_r": err2_r,
+         "max_abs_err_b1": err2_v,
          "ms": k2_ms, "host_ms": k2_host, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "view_moments", "route": "cuda",

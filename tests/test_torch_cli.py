@@ -1,13 +1,16 @@
-"""PyTorch port: the CLI's -r and -f modes end to end on the CPU
-(``--device cpu``) on tests/test_cli.py's 4-camera synthetic scene: the
+"""PyTorch port: the CLI end to end on the CPU (``--device cpu``) on
+tests/test_cli.py's 4-camera synthetic scene: -r and -f with the
 reference's artifacts, a mid-run autosave (and its live snapshot), the
 ``-r auto_save.mvs`` resume from it, ``-r`` from an ``.mvs`` without a
-sidecar, bit-determinism for a fixed rngSeed, a clean SystemExit for
-every mode outside the port, and no silent fallback to the CPU when the
-GPU is missing."""
+sidecar, bit-determinism for a fixed rngSeed; ``-r`` on an NVM without
+sparse points (feature seeding), ``-r -b`` (bundle adjustment), ``-v
+--patch-id --reoptimize``, ``-a`` and ``--profile``; a clean SystemExit
+for every flag outside the port, and no silent fallback to the CPU when
+the GPU is missing."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -121,15 +124,126 @@ def test_reconstruction_is_deterministic(disk_scene, monkeypatch, tmp_path):
     assert outs[0] == outs[1]
 
 
+@pytest.fixture(scope="module")
+def reconstructed(disk_scene):
+    """``-r scene.nvm``'s exp.mvs, beside the scene's images (the viewer
+    loads them from the .mvs file's directory) as rec.mvs."""
+    d, _ = disk_scene
+    out = d / "rec"
+    out.mkdir()
+    here = os.getcwd()
+    os.chdir(d)
+    try:
+        assert cli.main(["-r", "scene.nvm", "-o", str(out), "--device",
+                         "cpu"]) == 0
+    finally:
+        os.chdir(here)
+    shutil.copy(out / "exp.mvs", d / "rec.mvs")
+    return d / "rec.mvs", mvsbin.read_mvs(str(d / "rec.mvs"))
+
+
+def test_reconstruct_seeds_by_features(disk_scene, monkeypatch, tmp_path,
+                                      capsys):
+    """An NVM without sparse points: the seeds come from feature
+    matching, and the cloud lies on the surface."""
+    d, sc = disk_scene
+    monkeypatch.chdir(d)
+    assert cli.main(["-r", "empty.nvm", "-o", str(tmp_path), "--device",
+                     "cpu"]) == 0
+    out = capsys.readouterr().out
+    n_seeds = int(out.split("feature seeding: ")[1].split()[0])
+    assert n_seeds > 10
+    f = mvsbin.read_mvs(str(tmp_path / "exp.mvs"))
+    assert len(f.patches.centers) > 2 * n_seeds
+    assert np.median(sc.surface_distance(f.patches.centers)) < 0.01
+    stats = json.loads((tmp_path / "stats.json").read_text())
+    assert stats["seed_accepted"] > 0.5 * n_seeds
+
+
+def test_reconstruct_with_pose_refinement(disk_scene, reconstructed,
+                                          monkeypatch, tmp_path, capsys):
+    """-b bundle-adjusts the NVM's poses over its tracks, then
+    reconstructs; without tracks (or from an .mvs) it warns and goes on."""
+    d, sc = disk_scene
+    monkeypatch.chdir(d)
+    assert cli.main(["-r", "scene.nvm", "-b", "-o", str(tmp_path),
+                     "--device", "cpu"]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("pose refinement: reprojection RMS ")]
+    assert len(line) == 1
+    rms = [float(line[0].split()[i]) for i in (4, 6)]
+    assert rms[1] <= rms[0] + 1e-3 and rms[1] < 0.01, line
+    for name in ("init.mvs", "seed.mvs", "exp.mvs", "exp.ply", "exp.psr",
+                 "stats.json", "log.txt"):
+        assert (tmp_path / name).exists(), name
+    f = mvsbin.read_mvs(str(tmp_path / "exp.mvs"))
+    assert len(f.patches.centers) > 80
+    assert np.median(sc.surface_distance(f.patches.centers)) < 0.01
+    for src in ("empty.nvm", str(reconstructed[0])):
+        o = tmp_path / os.path.basename(src).replace(".", "_")
+        o.mkdir()
+        assert cli.main(["-r", src, "-b", "-o", str(o), "--device",
+                         "cpu"]) == 0
+        assert "--refine-poses ignored" in (o / "log.txt").read_text()
+
+
+def test_view_with_patch_diagnostics_and_reoptimize(disk_scene,
+                                                    reconstructed,
+                                                    monkeypatch, tmp_path,
+                                                    capsys):
+    d, _ = disk_scene
+    path, f = reconstructed
+    monkeypatch.chdir(d)
+    assert cli.main(["-v", str(path), "--patch-id", "3", "--reoptimize",
+                     "-o", str(tmp_path), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"patches: {len(f.patches.centers)}" in out
+    assert "re-optimized: fitness" in out
+    pts = read_ply(str(tmp_path / "view_snapshot.ply"))[0]
+    np.testing.assert_allclose(pts, f.patches.centers, atol=1e-5)
+    html = (tmp_path / "view.html").read_text()
+    assert f"{len(f.patches.centers)} patches" in html
+    # the picked patch before (id 3) and after re-optimization (3000001)
+    for stem in ("patch3", "patch3000001"):
+        for kind in ("views", "error"):
+            assert (tmp_path / f"{stem}_{kind}.png").exists(), (stem, kind)
+    with pytest.raises(SystemExit, match="out of range"):
+        cli.main(["-v", str(path), "--patch-id", "100000", "-o",
+                  str(tmp_path), "--device", "cpu"])
+
+
+def test_animate_writes_insertion_order(reconstructed, tmp_path):
+    path, f = reconstructed
+    assert cli.main(["-a", str(path), "-o", str(tmp_path), "--device",
+                     "cpu"]) == 0
+    lines = (tmp_path / "animate.ply").read_text().splitlines()
+    body = lines[lines.index("end_header") + 1:]
+    n = len(f.patches.centers)
+    assert len(body) == n
+    order = np.array([float(ln.split()[-1]) for ln in body])
+    np.testing.assert_allclose(order, np.arange(n) / (n - 1), atol=1e-6)
+    xyz = np.array([[float(v) for v in ln.split()[:3]] for ln in body])
+    np.testing.assert_allclose(xyz, f.patches.centers, atol=1e-5)
+
+
+def test_profile_writes_a_trace(reconstructed, tmp_path):
+    path, _ = reconstructed
+    prof = tmp_path / "prof"
+    assert cli.main(["-a", str(path), "-o", str(tmp_path), "--profile",
+                     str(prof), "--device", "cpu"]) == 0
+    trace = json.loads((prof / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert (tmp_path / "animate.ply").exists()
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["-r", "scene.nvm", "-b"], 10),
-    (["-v", "exp.mvs"], 10),
-    (["-a", "exp.mvs"], 10),
-    (["-r", "empty.nvm"], 10),
     (["-r", "scene.nvm", "--distributed-expansion"], 11),
     (["-r", "scene.nvm", "--distributed-expansion", "--mesh-shape", "4,x"],
      11),
-    (["-r", "scene.nvm", "--mesh-shape", "2"], 11)])
+    (["-r", "scene.nvm", "--mesh-shape", "2"], 11),
+    (["-r", "scene.nvm", "--coordinator", "localhost:1234"], 11),
+    (["-r", "scene.nvm", "--num-processes", "2"], 11),
+    (["-r", "scene.nvm", "--process-id", "0"], 11)])
 def test_modes_outside_the_port_exit_cleanly(disk_scene, monkeypatch, argv,
                                              item):
     d, _ = disk_scene

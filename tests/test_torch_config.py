@@ -75,7 +75,8 @@ def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import in a fresh
     interpreter with jax, flax and pais_mvs_tpu blocked; the walk reaches
     the view-sharded path, the microbench tool, the host engine's cell
-    grids and native runtime, the file formats and the CLI."""
+    grids and native runtime, the file formats, feature seeding, bundle
+    adjustment, the diagnostics and the CLI."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCK = ("jax", "jaxlib", "flax", "pais_mvs_tpu")
@@ -96,7 +97,8 @@ def test_port_imports_no_jax():
         need = ["pais_mvs_tpu_torch." + m for m in (
             "ops.view_fitness", "parallel.mesh", "parallel.distributed",
             "parallel.sharded", "tools.microbench_kernel", "engine.cellgrid",
-            "native", "io.nvm", "io.mvsbin", "io.logmanager", "cli")]
+            "native", "io.nvm", "io.mvsbin", "io.logmanager", "cli",
+            "features.seeding", "ops.bundle", "diagnostics")]
         assert all(m in sys.modules for m in need), need
         print("isolated")
     """)

@@ -1,5 +1,5 @@
-"""Worker processes for the view-sharded port's CPU tests
-(tests/test_torch_view_fitness.py).
+"""Worker processes for the port's multi-rank CPU tests
+(tests/test_torch_view_fitness.py, tests/test_torch_bundle.py).
 
 This module imports only torch, numpy and the port, so that the ``spawn``
 children stay free of JAX. ``run_workers`` starts ``world`` gloo ranks that
@@ -175,5 +175,20 @@ def job_vp4(rank, world, payload):
     return out
 
 
-JOBS = {"vp2": job_vp2, "vp4": job_vp4}
+def job_ba(rank, world, payload):
+    """Track-sharded bundle adjustment over every rank, once per problem
+    in ``payload["problems"]`` (numpy BaProblem fields)."""
+    from pais_mvs_tpu_torch.ops.bundle import BaProblem, bundle_adjust_sharded
+    from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((world, 1))
+    out = {}
+    for name, fields in payload["problems"].items():
+        res = bundle_adjust_sharded(BaProblem(*map(_t, fields)), mesh.patch,
+                                    **payload["kw"])
+        out.update({f"{name}_{k}": v.numpy()
+                    for k, v in res._asdict().items()})
+    return out
+
+
+JOBS = {"vp2": job_vp2, "vp4": job_vp4, "ba": job_ba}
 
