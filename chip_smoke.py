@@ -121,15 +121,48 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      against their twins at B = 1 (the ``--reoptimize`` shape), phases
      2-3's tolerances;
  21. ``cli.main(["-a", "exp.mvs"])``: animate.ply holds exp.mvs's live
-     patches with ``order`` 0..N-1 (scaled to [0, 1]).
+     patches with ``order`` 0..N-1 (scaled to [0, 1]);
+ 22. ``cli.main(["-r", nvm, "--distributed-expansion"])`` in this process
+     on phase 16's files: the SPMD expansion in an NCCL world of one.
+     Phase 16's gates, K1 and K2 launched and no other kernel, and the
+     cloud against phase 16's: mutual agreement at half a cell >= 0.65
+     each way and the count ratio in [0.7, 1.43]
+     (tests/test_engine_distributed.py::test_expand_distributed_
+     realistic_parity's absolute bars); prints the expansion's time,
+     rounds, spills, refines/s and peak device memory;
+ 23. dp=4: four processes of ``python -m pais_mvs_tpu_torch.cli -r ...
+     --distributed-expansion --mesh-shape 4,1 --coordinator localhost:PORT
+     --num-processes 4 --process-id I -o DIR_I`` (gloo, all on card 0,
+     joined with a deadline, killed and reaped on expiry): every process
+     exits 0 and logs the data-parallel seed refine, the four exp.mvs are
+     bit-equal, and phase 22's gates hold with phase 22's cloud as the
+     yardstick;
+ 24. vp=5: five gloo ranks on card 0 (``chip_smoke.py --dist-rank``), each
+     building the CLI's Reconstructor on phase 16's files with one camera
+     block, run the seed stage and ``expand_distributed`` on the (1, 5)
+     mesh for ``DIST_VP_ROUNDS`` rounds; this process runs the same at
+     vp=1 (flat K1, an NCCL world of one) with the same PSO streams. Every
+     rank's arena bit-equal; the seed stages bit-equal to vp=1's; the
+     first round's accepted rows against vp=1's (agreement >= 0.95,
+     median centre difference <= 1e-4 over rows both accept: phase 12's
+     bars) and the clouds after the last round >= 0.9 mutual agreement
+     at half a cell; inside the expansion A, B and K2 launched and K1 not;
+     on rank 0, A, B and K2 against their plain twins (phase 4's and
+     phase 3's tolerances) on the arguments of their first call inside
+     the expansion (the scale-2 atlas's one-camera block, the refine's
+     rows of round 0).
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
-18's first -r), ``launches_refine_poses_r`` (phase 19's -r -b) and
-``launches_reoptimize`` (phase 20's -v); A's and B's are phase 10's.
-K1's and K2's ``max_abs_err`` is the largest of every check,
-``max_abs_err_r`` that of the checks at phase 16's shapes alone and
-``max_abs_err_b1`` that of phase 20's checks at B = 1.
+18's first -r), ``launches_refine_poses_r`` (phase 19's -r -b),
+``launches_reoptimize`` (phase 20's -v) and ``launches_dist_r`` (phase
+22's -r --distributed-expansion); A's and B's are phase 10's;
+``launches_dist_vp`` of A, B and K2 are rank 0's inside phase 24's
+expansion.
+Each kernel's ``max_abs_err`` is the largest of every check of it,
+``max_abs_err_r`` that of the checks at phase 16's shapes alone,
+``max_abs_err_b1`` that of phase 20's checks at B = 1 and
+``max_abs_err_dist_vp`` that of phase 24's check inside the expansion.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
@@ -451,14 +484,23 @@ def check_fitness(label, scene, cfg, ref, mask, lod, ray, pos, active=None,
 
 
 def check_sampler(label, scene, cfg, center, normal, ref, mask, lod):
-    """K2 vs its plain twin on the same inputs; returns max |err|."""
+    """K2 vs its plain twin on the same inputs; returns (max |err|, (H,
+    pt))."""
+    from pais_mvs_tpu_torch.ops import fitness as F
+    H, _, pt = F.warp_geometry(scene, cfg, center, normal, ref, lod)
+    return compare_sampler(label, (scene.pyramids, H, pt, lod, mask,
+                                   cfg.patch_radius)), (H, pt)
+
+
+def compare_sampler(label, args):
+    """K2 on ``args`` (``warped_samples``' arguments) against its plain
+    twin: the same valid samples, |err| <= 1e-5 (relative above 1);
+    returns max |err|."""
     import torch
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import fitness as F
-    H, _, pt = F.warp_geometry(scene, cfg, center, normal, ref, lod)
-    r = cfg.patch_radius
-    plain = F.warped_samples(scene.pyramids, H, pt, lod, mask, r)
-    kern = CF.warped_samples(scene.pyramids, H, pt, lod, mask, r)
+    plain = F.warped_samples(*args)
+    kern = CF.warped_samples(*args)
     torch.cuda.synchronize()
     okp, okk = plain > F.INVALID / 2, kern > F.INVALID / 2
     if not torch.equal(okp, okk):
@@ -470,7 +512,7 @@ def check_sampler(label, scene, cfg, center, normal, ref, mask, lod):
         fail(f"K2 {label}: max |err| {m:.3g} over tolerance")
     log(f"K2 {label}: {int(okp.sum())}/{okp.numel()} samples valid, ok set "
         f"equal, max |err| {m:.3g}")
-    return m, (H, pt)
+    return m
 
 
 def view_inputs(scene, cfg, ref, mask, lod, ray, pos, c, active=None,
@@ -503,20 +545,29 @@ def view_inputs(scene, cfg, ref, mask, lod, ray, pos, c, active=None,
 
 def check_view_kernels(label, args, radius, edges):
     """The view fitness's kernels against their plain twins on the same
-    inputs: A (view_moments) planes 1-3 equal on rows with a finite window
-    centre (the others are never read: their particles are invalid),
-    plane 0 to 1e-5 (relative above 1); B (view_deviation), against the
-    plain sum over the rig's visible cameras (``args``' last entry; as
-    one view rank sees it), to 1e-5. Returns (max |err| of A, of B)."""
-    import torch
-    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    inputs (``compare_view_kernels``), B against the plain mean over the
+    rig's visible cameras (``args``' last entry; as one view rank sees
+    it). Returns (max |err| of A, of B)."""
     from pais_mvs_tpu_torch.ops import fitness as F
     pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own, cn = args
     am = (pyrs, H, pt, lod, act, mask, pvalid, ref_loc, own, radius, edges)
+    mean = F.view_moments(*am)[0] / cn.clamp(min=1)[:, None, None]
+    return compare_view_kernels(label, am, (pyrs, H, pt, lod, act, pvalid,
+                                            mean, radius))
+
+
+def compare_view_kernels(label, am, ad):
+    """A (view_moments) on ``am`` and B (view_deviation) on ``ad``, their
+    argument tuples, against their plain twins: A's planes 1-3 equal on
+    rows with a finite window centre (the others are never read: their
+    particles are invalid), plane 0 to 1e-5 (relative above 1); B to
+    1e-5. Returns (max |err| of A, of B)."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import fitness as F
+    pt, pvalid = am[2], am[6]
     plain = F.view_moments(*am)
     kern = CF.view_moments(*am)
-    mean = plain[0] / cn.clamp(min=1)[:, None, None]
-    ad = (pyrs, H, pt, lod, act, pvalid, mean, radius)
     dplain = F.view_deviation(*ad)
     dkern = CF.view_deviation(*ad)
     torch.cuda.synchronize()
@@ -858,6 +909,197 @@ def scale_aligned(c, ref):
     return (c - c[0]) * s + ref[0]
 
 
+# phase 24's depth: rounds of the view-sharded expansion
+DIST_VP_ROUNDS = 3
+
+
+def cloud_agreement(a, b, tol):
+    """(share of ``a`` within ``tol`` of a point of ``b``, and of ``b``
+    within ``tol`` of ``a``): pais_mvs_tpu/oracle.py::cloud_agreement's
+    mutual agreement, by nearest neighbour in a k-d tree."""
+    from scipy.spatial import cKDTree
+    if len(a) == 0 or len(b) == 0:
+        return 0.0, 0.0
+    return (float((cKDTree(b).query(a)[0] <= tol).mean()),
+            float((cKDTree(a).query(b)[0] <= tol).mean()))
+
+
+def half_cell(scene_files, cell_size):
+    """Half a cell's world footprint at the scene's depth (the parity
+    tests' tolerance)."""
+    cams = np.array([p.center for p in scene_files.params], float)
+    depth = float(np.linalg.norm(scene_files.seed_centers.mean(0)
+                                 - cams.mean(0)))
+    return 0.5 * cell_size * depth / float(scene_files.params[0].focal[0])
+
+
+def r_gates(label, out_dir, scene_files, n_seeds):
+    """Phase 16's gates on an ``-r`` output directory: every artifact,
+    accepted seeds > 40%, the cloud >= 20x the accepted seeds, median
+    surface distance < 2.5e-3, exp.mvs holding stats.json's live count.
+    Returns (stats, the cloud's centres, its median)."""
+    from pais_mvs_tpu_torch.io import mvsbin
+    missing = [a for a in R_ARTIFACTS
+               if not os.path.exists(os.path.join(out_dir, a))]
+    if missing:
+        fail(f"{label}: artifacts missing {missing}")
+    with open(os.path.join(out_dir, "stats.json")) as f:
+        st = json.load(f)
+    c = mvsbin.read_mvs(os.path.join(out_dir, "exp.mvs")).patches.centers
+    med = float(np.median(scene_files.surface_distance(c)))
+    n_acc = st["seed_accepted"]
+    if not n_acc > 0.4 * n_seeds:
+        fail(f"{label}: {n_acc}/{n_seeds} seeds accepted (gate > 40%)")
+    if not len(c) >= 20 * n_acc:
+        fail(f"{label}: the cloud grew to {len(c)} from {n_acc} seeds "
+             f"(gate: 20x)")
+    if not med < 2.5e-3:
+        fail(f"{label}: median surface distance {med:.6f} (gate < 2.5e-3)")
+    if st["live_patches"] != len(c) or not np.isfinite(c).all():
+        fail(f"{label}: exp.mvs holds {len(c)} patches, stats.json "
+             f"{st['live_patches']} live (or non-finite centres)")
+    return st, c, med
+
+
+def agreement_gates(label, c, ref, tol):
+    """The realistic-parity bars against a yardstick cloud: mutual
+    agreement >= 0.65 each way, count ratio in [0.7, 1.43]."""
+    ag = cloud_agreement(c, ref, tol)
+    ratio = len(c) / max(len(ref), 1)
+    if min(ag) < 0.65 or not 0.7 <= ratio <= 1.43:
+        fail(f"{label}: agreement {ag[0]:.3f} / {ag[1]:.3f} (gate >= 0.65), "
+             f"count ratio {ratio:.3f} (gate [0.7, 1.43])")
+    return ag, ratio
+
+
+class StepRecorder:
+    """While installed (``with``), records each round's accepted mask and
+    refined centres of ``parallel.expansion.expand_step``, as this run's
+    ``expand_distributed`` calls it."""
+
+    def __enter__(self):
+        from pais_mvs_tpu_torch.parallel import expansion
+        self.rounds = []
+        self._mod, self._step = expansion, expansion.expand_step
+
+        def step(*a, **k):
+            out = self._step(*a, **k)
+            self.rounds.append((out[1].cpu().numpy(),
+                                out[0].center.cpu().numpy()))
+            return out
+        expansion.expand_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.expand_step = self._step
+
+
+class FirstCalls:
+    """While installed (``with``), passes every call of the named
+    ``cuda_fitness`` wrappers through and keeps a copy of the arguments of
+    each one's first call (``self.args[name]``), as the code that calls
+    them passed them."""
+
+    def __init__(self, *names):
+        self.names = names
+
+    def __enter__(self):
+        import torch
+        from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+        self.args, self._orig = {}, {n: getattr(CF, n) for n in self.names}
+        own = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+
+        def wrap(name, fn):
+            def call(*a):
+                if name not in self.args:
+                    self.args[name] = tuple(map(own, a))
+                return fn(*a)
+            return call
+        for n, fn in self._orig.items():
+            setattr(CF, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+        for n, fn in self._orig.items():
+            setattr(CF, n, fn)
+
+
+def dist_stage(nvm, work, out_dir, dev, mesh_shape=None, first=()):
+    """Phase 24's run on one rank: the CLI's Reconstructor on phase 16's
+    files (config.txt from ``work``), the seed stage, then
+    ``DIST_VP_ROUNDS`` rounds of ``expand_distributed`` with the launches
+    counted, each round recorded and the first call's arguments of each
+    wrapper named in ``first`` kept. Returns (Reconstructor, seed
+    centres, launches, the rounds, seconds of the expansion, the first
+    calls' arguments by name)."""
+    import torch
+    from pais_mvs_tpu_torch import cli
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        rec = cli._build_reconstructor(nvm, out_dir, dev,
+                                       mesh_shape=mesh_shape)
+    finally:
+        os.chdir(here)
+    rec.logger.echo = False
+    rec.refine_seeds()
+    seeds = rec.arena.data["center"][:rec.arena.count].copy()
+    torch.cuda.synchronize()
+    CF.reset_launch_counts()
+    t0 = time.time()
+    with StepRecorder() as steps, FirstCalls(*first) as calls:
+        rec.expand_distributed(max_rounds=DIST_VP_ROUNDS)
+    torch.cuda.synchronize()
+    return (rec, seeds, dict(CF.LAUNCHES), steps.rounds, time.time() - t0,
+            calls.args)
+
+
+def dist_worker(rank, world, port, out_dir):
+    """One rank of phase 24 (``chip_smoke.py --dist-rank RANK WORLD PORT
+    DIR``): gloo over localhost, all ranks on card 0, the (1, WORLD) mesh;
+    reads DIR/payload.pkl and writes DIR/rank<RANK>.npz. Rank 0 also
+    holds A, B and K2 against their plain twins on the arguments of their
+    first call inside the expansion (the first view evaluation of round
+    0 and its NCC vectors: the scale-2 atlas's one-camera block, the
+    expansion's P and the round's refine rows) and writes the errors
+    (``errs``: A, B, K2)."""
+    sys.path.insert(0, HERE)
+    import torch
+    from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+    with open(os.path.join(out_dir, "payload.pkl"), "rb") as f:
+        payload = pickle.load(f)
+    dev = init_distributed(f"tcp://localhost:{port}", rank, world,
+                           backend="gloo", device="cuda", timeout_s=300)
+    names = ("view_moments", "view_deviation", "warped_samples")
+    rec, seeds, launches, rounds, wall, first = dist_stage(
+        payload["nvm"], payload["work"],
+        os.path.join(out_dir, f"rank{rank}"), dev, mesh_shape=(1, world),
+        first=names if rank == 0 else ())
+    extra = {}
+    if rank == 0:
+        if sorted(first) != sorted(names):
+            fail(f"vp={world}: the expansion called only {sorted(first)} "
+                 f"of {names}")
+        am = first["view_moments"]
+        label = (f"vp={world} expansion's first call (B={am[1].shape[0]}, "
+                 f"P={am[1].shape[1]}, c={am[1].shape[2]}, atlas "
+                 f"{tuple(am[0].images.shape)})")
+        ea, eb = compare_view_kernels(label, am, first["view_deviation"])
+        e2 = compare_sampler(label, first["warped_samples"])
+        extra["errs"] = np.array([ea, eb, e2])
+    a = rec.arena
+    n = a.count
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), seeds=seeds, **extra,
+             alive=a.alive[:n], expanded=a.expanded[:n],
+             launches=np.array([launches[k] for k in sorted(launches)]),
+             acc0=rounds[0][0], center0=rounds[0][1], wall=np.array(wall),
+             rounds=np.array(len(rounds)),
+             **{f"d_{k}": v[:n] for k, v in a.data.items()})
+    torch.distributed.destroy_process_group()
+
+
 def vp_worker(rank, world, port, out_dir):
     """One rank of phase 12 (``chip_smoke.py --vp-rank RANK WORLD PORT
     DIR``): gloo over localhost, all ranks on card 0; reads its inputs from
@@ -893,32 +1135,52 @@ def vp_worker(rank, world, port, out_dir):
     torch.distributed.destroy_process_group()
 
 
-def run_vp_workers(world, payload, timeout_s=400.0):
-    """Start ``world`` ranks of ``vp_worker`` as child processes of this
-    script, wait for them with a deadline, kill and reap them all on
-    expiry; returns each rank's arrays."""
+def run_children(label, argvs, timeout_s, cwd=None, env=None, logs=None):
+    """Start one child process per argv, all at once, wait for them with a
+    deadline, and kill and reap those still running when it passes. Fails
+    unless every one exited 0, quoting the end of each ``logs`` file
+    (which then takes the child's stdout and stderr)."""
+    procs = []
+    for i, argv in enumerate(argvs):
+        if logs is None:
+            procs.append(subprocess.Popen(argv, cwd=cwd, env=env))
+            continue
+        with open(logs[i], "w") as out:
+            procs.append(subprocess.Popen(argv, cwd=cwd, env=env, stdout=out,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.time() + timeout_s
+    try:
+        for p in procs:
+            p.wait(max(0.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    hung = [i for i, p in enumerate(procs) if p.poll() is None]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if hung or any(codes):
+        tails = []
+        for path in logs or ():
+            with open(path) as f:
+                tails.append(f.read()[-1500:])
+        fail(f"{label}: still running {hung}, exit codes {codes}"
+             + "".join(f"\n----\n{t}" for t in tails))
+
+
+def run_vp_workers(world, payload, timeout_s=400.0, flag="--vp-rank"):
+    """Run ``world`` ranks of ``vp_worker`` (``dist_worker`` with
+    ``flag="--dist-rank"``) as child processes of this script under
+    ``run_children``; returns each rank's arrays."""
     port = free_port()
     with tempfile.TemporaryDirectory() as out_dir:
         with open(os.path.join(out_dir, "payload.pkl"), "wb") as f:
             pickle.dump(payload, f)
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--vp-rank", str(r),
-             str(world), str(port), out_dir]) for r in range(world)]
-        deadline = time.time() + timeout_s
-        try:
-            for p in procs:
-                p.wait(max(0.0, deadline - time.time()))
-        except subprocess.TimeoutExpired:
-            pass
-        hung = [r for r, p in enumerate(procs) if p.poll() is None]
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        codes = [p.returncode for p in procs]
-        if hung or any(c != 0 for c in codes):
-            fail(f"vp={world} ranks: still running {hung}, exit codes "
-                 f"{codes}")
+        run_children(f"{flag} world of {world}", [
+            [sys.executable, os.path.abspath(__file__), flag, str(r),
+             str(world), str(port), out_dir] for r in range(world)],
+            timeout_s)
         return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
                 for r in range(world)]
 
@@ -1956,6 +2218,145 @@ def main():
              f"live patches, or the order is not 0..N-1")
     log(f"-a (CLI): animate.ply holds exp.mvs's {n_a} patches, order "
         f"{order[0]:g}..{order[-1]:g} in insertion order")
+    # 22. -r --distributed-expansion through the CLI, in this process (an
+    #     NCCL world of one), on phase 16's files
+    tol = half_cell(rsc2, 12)
+    d22 = os.path.join(work, "dist")
+    os.makedirs(d22)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    CF.reset_launch_counts()
+    t0 = time.time()
+    rc, _ = run_cli(["-r", nvm, "--distributed-expansion", "-o", d22], work)
+    torch.cuda.synchronize()
+    d22_s = time.time() - t0
+    d_launches = dict(CF.LAUNCHES)
+    d_mem = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    if rc != 0:
+        fail(f"-r --distributed-expansion: exit code {rc}")
+    if torch.distributed.is_initialized():
+        fail("-r --distributed-expansion left its world of one initialised")
+    st22, c22, med22 = r_gates("-r --distributed-expansion", d22, rsc2,
+                               n_seeds)
+    if any(d_launches[k] for k in d_launches
+           if k not in ("fitness", "sampler")) or \
+            not (d_launches["fitness"] and d_launches["sampler"]):
+        fail(f"-r --distributed-expansion launched {d_launches}: K1 and K2 "
+             f"each at least once and no other kernel expected")
+    ag22, ratio22 = agreement_gates("-r --distributed-expansion vs phase 16",
+                                    c22, exp.centers, tol)
+    if not 0 < st22["dist_device_s"] <= st22["dist_expansion_s"]:
+        fail("-r --distributed-expansion: dist_device_s outside "
+             "(0, dist_expansion_s]")
+    log(f"-r --distributed-expansion (CLI, in process, NCCL world of 1): "
+        f"{d22_s:.1f} s; seeds {st22['seed_accepted']}/{n_seeds}; "
+        f"expansion {len(c22)} patches in {st22['dist_expansion_s']:.2f} s "
+        f"over {st22['dist_rounds']} rounds, {st22['dist_refined']} "
+        f"refined ({st22['dist_pps']:.1f} refines/s), {st22['dist_spilled']} "
+        f"spilled; the steps' launch-to-completion spans (CUDA events, "
+        f"dist_device_s) {st22['dist_device_s']:.3f} s; median "
+        f"{med22:.6f}; against phase 16's {len(exp.centers)} patches: "
+        f"agreement {ag22[0]:.3f} / {ag22[1]:.3f} at half a cell "
+        f"({tol:.3g}), count ratio {ratio22:.3f}; peak device memory "
+        f"{d_mem:.3f} GiB above the script's {base_mem / 2 ** 30:.3f}; "
+        f"launches {d_launches}")
+
+    # 23. dp=4: four CLI processes joined by --coordinator (gloo, card 0)
+    port = free_port()
+    dirs = [os.path.join(work, f"dp4_{i}") for i in range(4)]
+    env = {**os.environ, "PYTHONPATH": HERE}
+    for d in dirs:
+        os.makedirs(d)
+    t0 = time.time()
+    run_children("dp=4 CLI processes", [
+        [sys.executable, "-m", "pais_mvs_tpu_torch.cli", "-r", nvm,
+         "--distributed-expansion", "--mesh-shape", "4,1", "--coordinator",
+         f"localhost:{port}", "--num-processes", "4", "--process-id",
+         str(i), "-o", d] for i, d in enumerate(dirs)], 600, cwd=work,
+        env=env, logs=[os.path.join(d, "stdout.txt") for d in dirs])
+    d23_s = time.time() - t0
+    for d in dirs:
+        with open(os.path.join(d, "log.txt")) as f:
+            if "data-parallel refine over 4 ranks" not in f.read():
+                fail(f"dp=4: {d}/log.txt does not log the data-parallel "
+                     f"seed refine")
+    exps = []
+    for d in dirs:
+        with open(os.path.join(d, "exp.mvs"), "rb") as f:
+            exps.append(f.read())
+    if any(e != exps[0] for e in exps[1:]):
+        fail("dp=4: the four processes wrote different exp.mvs bytes")
+    st23, c23, med23 = r_gates("dp=4 -r --distributed-expansion", dirs[0],
+                               rsc2, n_seeds)
+    ag23, ratio23 = agreement_gates("dp=4 vs phase 22", c23, c22, tol)
+    log(f"dp=4 (4 CLI processes, gloo on one card): {d23_s:.1f} s wall; "
+        f"seeds {st23['seed_accepted']}/{n_seeds} (data-parallel) in "
+        f"{st23['seed_refine_s']:.2f} s; expansion {len(c23)} patches in "
+        f"{st23['dist_expansion_s']:.2f} s over {st23['dist_rounds']} "
+        f"rounds, {st23['dist_refined']} refined ({st23['dist_pps']:.1f} "
+        f"refines/s), {st23['dist_spilled']} spilled; median {med23:.6f}; "
+        f"the four exp.mvs bit-equal; against phase 22: agreement "
+        f"{ag23[0]:.3f} / {ag23[1]:.3f}, count ratio {ratio23:.3f}")
+
+    # 24. vp=5: five gloo ranks, one camera block each, against vp=1 here
+    t0 = time.time()
+    d24 = os.path.join(work, "vp1")
+    rec1, seeds1, v1_launches, rounds1, v1_s, _ = dist_stage(nvm, work,
+                                                             d24, dev)
+    a1 = rec1.arena
+    ranks = run_vp_workers(5, dict(nvm=nvm, work=work), timeout_s=600,
+                           flag="--dist-rank")
+    d24_s = time.time() - t0
+    for k in ranks[0]:
+        if k not in ("wall", "errs") and not all(
+                np.array_equal(r[k], ranks[0][k]) for r in ranks[1:]):
+            fail(f"vp=5: the ranks' arenas differ in {k}")
+    r0 = ranks[0]
+    errva_vp, errvb_vp, err2_vp = map(float, r0["errs"])
+    errva, errvb = max(errva, errva_vp), max(errvb, errvb_vp)
+    err2 = max(err2, err2_vp)
+    vp_launches = dict(zip(sorted(CF.LAUNCHES), r0["launches"].tolist()))
+    if not (vp_launches["view_moments"] and vp_launches["view_deviation"]
+            and vp_launches["sampler"]) or any(
+                vp_launches[k] for k in vp_launches
+                if k not in ("view_moments", "view_deviation", "sampler")):
+        fail(f"vp=5 expansion launched {vp_launches}: A, B and K2 expected "
+             f"and no other kernel (K1 at 0)")
+    if any(v1_launches[k] for k in v1_launches
+           if k not in ("fitness", "sampler")) or not v1_launches["fitness"]:
+        fail(f"vp=1 expansion launched {v1_launches}: K1 and K2 expected")
+    if not np.array_equal(r0["seeds"], seeds1):
+        fail("vp=5: the ranks' seed stage differs from this process's")
+    acc5, acc1 = r0["acc0"], rounds1[0][0]
+    both = acc5 & acc1
+    agree = float((acc5 == acc1).mean())
+    mdc = (float(np.median(np.linalg.norm(
+        r0["center0"][both] - rounds1[0][1][both], axis=-1)))
+        if both.any() else float("inf"))
+    c5 = r0["d_center"][r0["alive"]]
+    cv1 = a1.data["center"][:a1.count][a1.alive[:a1.count]]
+    ag24 = cloud_agreement(c5, cv1, tol)
+    med5 = float(np.median(rsc2.surface_distance(c5)))
+    log(f"vp=5 (5 gloo ranks, one camera each) vs vp=1, {DIST_VP_ROUNDS} "
+        f"rounds after the seed stage: {d24_s:.1f} s wall for both "
+        f"(expansion vp=5 {float(r0['wall']):.2f} s, vp=1 {v1_s:.2f} s); "
+        f"seed stages bit-equal; round 0: accepted {int(acc5.sum())} vs "
+        f"{int(acc1.sum())} of {len(acc1)} rows, agreement {agree:.3f}, "
+        f"median centre difference {mdc:.3g}; after round "
+        f"{int(r0['rounds'])}: {len(c5)} vs {len(cv1)} patches, agreement "
+        f"{ag24[0]:.3f} / {ag24[1]:.3f} at half a cell, median {med5:.6f}; "
+        f"launches in the expansion vp=5 {vp_launches}, vp=1 {v1_launches}; "
+        f"rank 0's first A, B and K2 calls against their twins: max |err| "
+        f"{errva_vp:.3g}, {errvb_vp:.3g}, {err2_vp:.3g}")
+    if agree < 0.95 or mdc > 1e-4 or both.sum() < 0.5 * acc1.sum():
+        fail("vp=5: the first round disagrees with vp=1 (agreement >= "
+             "0.95, median centre difference <= 1e-4)")
+    if min(ag24) < 0.9 or not med5 < 2.5e-3:
+        fail(f"vp=5: after {DIST_VP_ROUNDS} rounds the cloud agrees "
+             f"{ag24[0]:.3f} / {ag24[1]:.3f} with vp=1's (gate >= 0.9), "
+             f"median {med5:.6f} (gate < 2.5e-3)")
+    del rec1
     shutil.rmtree(work)
 
     kernels = [
@@ -1968,6 +2369,7 @@ def main():
          "launches_features_r": fr_launches["fitness"],
          "launches_refine_poses_r": b_launches["fitness"],
          "launches_reoptimize": v_launches["fitness"],
+         "launches_dist_r": d_launches["fitness"],
          "max_abs_err": err1, "max_abs_err_r": err1_r,
          "max_abs_err_b1": err1_v,
          "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
@@ -1982,14 +2384,18 @@ def main():
          "launches_features_r": fr_launches["sampler"],
          "launches_refine_poses_r": b_launches["sampler"],
          "launches_reoptimize": v_launches["sampler"],
+         "launches_dist_r": d_launches["sampler"],
+         "launches_dist_vp": vp_launches["sampler"],
          "max_abs_err": err2, "max_abs_err_r": err2_r,
-         "max_abs_err_b1": err2_v,
+         "max_abs_err_b1": err2_v, "max_abs_err_dist_vp": err2_vp,
          "ms": k2_ms, "host_ms": k2_host, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "view_moments", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/view_fitness.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
-         "launches": vlaunches["view_moments"], "max_abs_err": errva,
+         "launches": vlaunches["view_moments"],
+         "launches_dist_vp": vp_launches["view_moments"],
+         "max_abs_err": errva, "max_abs_err_dist_vp": errva_vp,
          "ms": va_ms, "ms_in_loop": val_ms, "host_ms": va_host,
          "plain_ms": va_plain, "bound_ms": va_bound,
          "bound_ms_in_loop": val_bound, "bound_by": va_by,
@@ -1997,7 +2403,9 @@ def main():
         {"name": "view_deviation", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/view_fitness.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",
-         "launches": vlaunches["view_deviation"], "max_abs_err": errvb,
+         "launches": vlaunches["view_deviation"],
+         "launches_dist_vp": vp_launches["view_deviation"],
+         "max_abs_err": errvb, "max_abs_err_dist_vp": errvb_vp,
          "ms": vb_ms, "ms_in_loop": vbl_ms, "host_ms": vb_host,
          "plain_ms": vb_plain, "bound_ms": vb_bound,
          "bound_ms_in_loop": vbl_bound, "bound_by": vb_by,
@@ -2022,5 +2430,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--vp-rank"]:
         vp_worker(*map(int, sys.argv[2:5]), sys.argv[5])
+    elif sys.argv[1:2] == ["--dist-rank"]:
+        dist_worker(*map(int, sys.argv[2:5]), sys.argv[5])
     else:
         main()

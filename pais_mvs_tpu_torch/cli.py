@@ -11,6 +11,18 @@ bundle-adjusts the poses over the NVM's tracks first; ``-v --patch-id N``
 saves the patch's warped windows and SAD heat-map, ``--reoptimize`` refines
 it once more; ``--profile DIR`` writes a ``torch.profiler`` trace.
 
+``--distributed-expansion`` runs the expansion as SPMD cell-slab rounds
+(``Reconstructor.expand_distributed``). Several processes join through
+``--coordinator host:port --num-processes N --process-id I`` (one per
+card with NCCL, or gloo when they share a card or run on the CPU); every
+process runs the same program and writes its artifacts under its own
+``-o``. ``--mesh-shape dp,vp`` lays the processes out as dp patch ranks
+by vp view ranks (camera-block atlases; vp must divide the camera count,
+dp*vp must equal the process count); without it every process is a patch
+rank, and a single process expands in a world of one. The mesh is checked
+right after the cameras load, before any refine; with dp > 1 the seed
+refine runs data-parallel too (``dataParallel auto`` on a card, ``on``).
+
 It runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch versions of the kernels. Config
 resolution matches the reference: compiled defaults (TMVS.cpp:26-52)
@@ -19,11 +31,6 @@ overridden by ./config.txt if present (TMVS.cpp:178), re-applied after an
 exp.psr, PMVS/PCMVS filter dumps, stats.json, log.txt) keep the
 reference's names, and ``-r auto_save.mvs`` resumes from the autosave
 checkpoint (its ``.state.npz`` sidecar carries the expansion frontier).
-
-The flags the port does not have yet stop with a ``SystemExit`` that names
-the ROADMAP item bringing them: the distributed expansion
-(``--distributed-expansion``, ``--mesh-shape``) and multi-host runs
-(``--coordinator``, ``--num-processes``, ``--process-id``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import sys
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from pais_mvs_tpu_torch import resolve_device
 from pais_mvs_tpu_torch.config import MvsConfig, load_config_txt
@@ -44,14 +52,42 @@ from pais_mvs_tpu_torch.io import nvm as nvm_io
 from pais_mvs_tpu_torch.io.logmanager import LogManager
 from pais_mvs_tpu_torch.io.pointcloud import write_ply
 from pais_mvs_tpu_torch.models import patch as patch_mod
+from pais_mvs_tpu_torch.parallel.distributed import init_from_flags
+from pais_mvs_tpu_torch.parallel.mesh import make_mesh
 
 CONFIG_FILE_NAME = "config.txt"
 
 
-def _not_ported(what: str, item: int, subject: str) -> SystemExit:
-    return SystemExit(f"pais_mvs_tpu_torch: {what} is not ported yet "
-                      f"(ROADMAP Queue 1 item {item}: {subject}); "
-                      f"pais_mvs_tpu.cli has it")
+def _parse_mesh_shape(text: str | None):
+    """``--mesh-shape dp,vp`` as a pair of positive ints (None when not
+    given); anything else stops with a SystemExit."""
+    if text is None:
+        return None
+    parts = text.split(",")
+    if len(parts) != 2 or not all(p.strip().isdigit() and int(p) > 0
+                                  for p in parts):
+        raise SystemExit(f"--mesh-shape must be dp,vp (two positive "
+                         f"integers), got {text!r}")
+    return tuple(int(p) for p in parts)
+
+
+def _mesh_for(shape, num_cams: int):
+    """This process's (dp, vp) mesh over the started world, or None for
+    a single process (the expansion then makes a world of one). Stops
+    with a SystemExit when vp does not divide the camera count or dp*vp
+    is not the process count."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if shape is None:
+        return make_mesh() if world > 1 else None
+    dp, vp = shape
+    if num_cams % vp:
+        raise SystemExit(f"--mesh-shape view axis {vp} must divide the "
+                         f"camera count {num_cams}")
+    if dp * vp != world:
+        raise SystemExit(f"--mesh-shape {dp},{vp} needs {dp * vp} "
+                         f"processes, the run has {world} (start them with "
+                         f"--coordinator, --num-processes and --process-id)")
+    return make_mesh(shape) if world > 1 else None
 
 
 def _load_images(params, base_dir):
@@ -146,12 +182,14 @@ def _refine_poses(params, images, centers, cam_masks, img_points, device):
 
 
 def _build_reconstructor(path: str, out_dir: str, device,
-                         refine_poses: bool = False) -> Reconstructor:
+                         refine_poses: bool = False,
+                         mesh_shape=None) -> Reconstructor:
     ext = path.rsplit(".", 1)[-1].lower()
     base_dir = os.path.dirname(os.path.abspath(path))
     logger = LogManager(os.path.join(out_dir, "log.txt"))
     if ext in ("nvm", "nvm2"):
         data = nvm_io.load_nvm(path, nvm2=(ext == "nvm2"))
+        mesh = _mesh_for(mesh_shape, len(data.cameras))
         cfg = _resolve_config()
         images = _load_images(data.cameras, base_dir)
         ipts = None
@@ -170,7 +208,7 @@ def _build_reconstructor(path: str, out_dir: str, device,
             logger.warning("--refine-poses ignored: the NVM has no sparse "
                            "tracks to bundle-adjust over")
         rec = Reconstructor(data.cameras, images, cfg, logger=logger,
-                            device=device)
+                            device=device, mesh=mesh)
         if ipts is not None:
             rec.load_seeds(data.centers, data.cam_masks, ipts, data.colors)
         else:
@@ -190,10 +228,11 @@ def _build_reconstructor(path: str, out_dir: str, device,
             logger.warning("--refine-poses ignored: .mvs checkpoints carry "
                            "no track measurements to bundle-adjust over")
         f = mvsbin.read_mvs(path)
+        mesh = _mesh_for(mesh_shape, len(f.cameras))
         cfg = _resolve_config(f.config)
         images = _load_images(f.cameras, base_dir)
         rec = Reconstructor(f.cameras, images, cfg, logger=logger,
-                            device=device)
+                            device=device, mesh=mesh)
         # a .state.npz sidecar (written by autosave) restores the full
         # arena incl. the expansion frontier; otherwise treat the .mvs
         # patches as seeds to re-refine (reference -r .mvs semantics)
@@ -218,9 +257,11 @@ def _dump_stats(rec: Reconstructor, out_dir: str) -> None:
 
 def run_reconstruct(path: str, out_dir: str = ".",
                     refine_poses: bool = False,
-                    live_snapshots: bool = False, device="cuda") -> None:
+                    live_snapshots: bool = False, device="cuda",
+                    distributed: bool = False, mesh_shape=None) -> None:
     rec = _build_reconstructor(path, out_dir, device,
-                               refine_poses=refine_poses)
+                               refine_poses=refine_poses,
+                               mesh_shape=mesh_shape)
     if live_snapshots:
         rec.live_snapshot_dir = out_dir
     rec._log(rec.cfg.describe())
@@ -231,7 +272,10 @@ def run_reconstruct(path: str, out_dir: str = ".",
         rec.refine_seeds()
         rec.write_mvs(j("seed.mvs"))
     # a resumed checkpoint continues expansion where it stopped
-    rec.expand(autosave_path=j("auto_save.mvs"))
+    if distributed:
+        rec.expand_distributed(autosave_path=j("auto_save.mvs"))
+    else:
+        rec.expand(autosave_path=j("auto_save.mvs"))
     rec.write_mvs(j("exp.mvs"))
     rec.write_ply(j("exp.ply"))
     rec.write_psr(j("exp.psr"))
@@ -378,10 +422,14 @@ def main(argv=None):
                     help="bundle-adjust camera poses over the SfM tracks "
                          "before dense reconstruction")
     ap.add_argument("--mesh-shape", default=None,
-                    help="device mesh of the distributed expansion "
-                         "(not ported)")
+                    help="dp,vp layout of the processes: patch ranks x view "
+                         "ranks (camera-block atlases; dp*vp must equal "
+                         "the process count and vp must divide the camera "
+                         "count). Default: every process a patch rank")
     ap.add_argument("--distributed-expansion", action="store_true",
-                    help="SPMD expansion over several devices (not ported)")
+                    help="run the expansion as SPMD cell-slab rounds over "
+                         "the processes (a world of one without "
+                         "--coordinator)")
     ap.add_argument("--live-snapshots", action="store_true",
                     help="refresh OUT_DIR/live_snapshot.ply at every "
                          "autosave so the growing cloud can be watched "
@@ -397,34 +445,40 @@ def main(argv=None):
                          "GPU, CUDA activity) of the run into DIR as a "
                          "Chrome trace file")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-host coordinator address (not ported)")
+                    help="multi-process: rendezvous address host:port "
+                         "(process 0 listens there)")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help="multi-host process count (not ported)")
+                    help="multi-process: total process count")
     ap.add_argument("--process-id", type=int, default=None,
-                    help="multi-host process id (not ported)")
+                    help="multi-process: this process's id, 0..N-1")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a GPU)."
                          " 'cpu' runs the kernels' plain PyTorch versions")
     args = ap.parse_args(argv)
 
-    if args.distributed_expansion or args.mesh_shape is not None:
-        raise _not_ported("--distributed-expansion/--mesh-shape", 11,
-                          "the SPMD expansion")
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise _not_ported("--coordinator/--num-processes/--process-id", 11,
-                          "multi-host runs")
+    mesh_shape = _parse_mesh_shape(args.mesh_shape)
     if not (args.r or args.f or args.v or args.a):
         ap.print_help()
         return 1
     device = resolve_device(args.device)
+    started = init_from_flags(args.coordinator, args.num_processes,
+                              args.process_id, device) is not None
+    try:
+        return _run_mode(args, device, mesh_shape)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _run_mode(args, device, mesh_shape) -> int:
     def run():
         if args.r:
             run_reconstruct(args.r, args.out_dir,
                             refine_poses=args.refine_poses,
                             live_snapshots=args.live_snapshots,
-                            device=device)
+                            device=device,
+                            distributed=args.distributed_expansion,
+                            mesh_shape=mesh_shape)
         elif args.f:
             run_filter(args.f, args.out_dir, device=device)
         elif args.v:

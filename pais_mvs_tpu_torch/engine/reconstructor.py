@@ -1,9 +1,10 @@
 """The reconstruction engine: batched seed refinement, wavefront expansion
 over the cell grids, post-filtering, and the ``.mvs`` checkpoints.
 
-The PyTorch counterpart of ``pais_mvs_tpu/engine/reconstructor.py``
-(:37-988). Not ported yet: the data-parallel refine over several local
-devices (``_refine_dp``) and the SPMD expansion (``expand_distributed``).
+The PyTorch counterpart of ``pais_mvs_tpu/engine/reconstructor.py``,
+with its data-parallel refine over the ranks of a mesh's patch axis
+(``_refine_dp``) and the SPMD expansion (``expand_distributed``), in which
+every rank runs the same host loop on the same gathered results.
 
 Inversion of the reference's control flow (SURVEY.md §7): instead of a
 serial priority queue popping ONE patch and running ONE swarm
@@ -20,6 +21,7 @@ numpy and the native runtime (``native/``).
 
 from __future__ import annotations
 
+import math
 import os
 import time
 import zipfile
@@ -40,6 +42,8 @@ from pais_mvs_tpu_torch.models import patch as patch_mod
 from pais_mvs_tpu_torch.models.camera import CameraParams, Scene, build_scene
 from pais_mvs_tpu_torch.models.patch import PatchBatch
 from pais_mvs_tpu_torch.ops import lifecycle as lc
+from pais_mvs_tpu_torch.parallel import mesh as mesh_mod
+from pais_mvs_tpu_torch.parallel.sharded import patch_seed, refine_sharded
 
 
 class Reconstructor:
@@ -50,7 +54,7 @@ class Reconstructor:
     def __init__(self, params: Sequence[CameraParams],
                  images: Sequence[np.ndarray], cfg: MvsConfig,
                  verbose: bool = True, use_native: Optional[bool] = None,
-                 logger=None, device="cuda"):
+                 logger=None, device="cuda", mesh=None):
         self.cfg = cfg
         self.params = list(params)
         self.verbose = verbose
@@ -72,6 +76,7 @@ class Reconstructor:
         self.neighbor_radius = cfg.neighbor_radius
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.rng_seed)
+        self.mesh = mesh
         self.live_snapshot_dir: Optional[str] = None
         self.resumed = False
         # the JAX package's distributed-expansion record (checkpointed as
@@ -88,6 +93,19 @@ class Reconstructor:
         self.np_principal = f64(rig.principal)
         self.stats: Dict[str, float] = {"scene_build_s": round(_scene_s, 2)}
         self._seed_pb: Optional[PatchBatch] = None
+        # PSO stream of the multi-rank paths, made on first use
+        self._patch_gen: Optional[torch.Generator] = None
+        # data-parallel refine over the ranks of the mesh's patch axis
+        # (pais_mvs_tpu/engine/reconstructor.py:73-87 over local devices):
+        # "on", or "auto" on a card; a world of 1 keeps the one-rank path
+        self._dp = None
+        dp = cfg.data_parallel
+        want_dp = dp == "on" or (dp == "auto" and self.device.type == "cuda")
+        if (want_dp and mesh is not None and mesh.patch.size > 1
+                and cfg.batch_size % mesh.patch.size == 0):
+            self._dp = mesh.patch
+            self._log(f"data-parallel refine over {mesh.patch.size} ranks "
+                      f"of the patch axis")
 
     # ------------------------------------------------------------------
     # logging
@@ -196,11 +214,26 @@ class Reconstructor:
     # ------------------------------------------------------------------
     # device batching
     # ------------------------------------------------------------------
+    def _patch_generator(self, index: int) -> torch.Generator:
+        """This rank's PSO stream, of patch index ``index``: seeded from
+        (rngSeed, index) alone, so the view ranks of a patch slice draw the
+        same particles, and continued across rounds, so it never
+        replays."""
+        if self._patch_gen is None:
+            self._patch_gen = torch.Generator(self.device).manual_seed(
+                patch_seed(self.cfg.rng_seed, index))
+        return self._patch_gen
+
     def _chunk_sizes(self, B: int):
         """Chunk plan: full batches plus a LADDER of smaller tail sizes
-        (bs/2, bs/4, floor 64) so a 400-seed load doesn't pad to 1024."""
+        (bs/2, bs/4, floor 64) so a 400-seed load doesn't pad to 1024.
+        Under the data-parallel refine every size divides over the patch
+        axis: the floor rounds UP to a multiple of its size."""
         bs = self.cfg.batch_size
-        ladder = sorted({bs, max(bs // 2, 64), max(bs // 4, 64)})
+        n_dp = 1 if self._dp is None else self._dp.size
+        floor = -(-64 // n_dp) * n_dp
+        ladder = sorted({bs, max(bs // 2 // n_dp * n_dp, floor),
+                         max(bs // 4 // n_dp * n_dp, floor)})
         sizes = []
         rem = B
         while rem > 0:
@@ -240,9 +273,13 @@ class Reconstructor:
         for size in sizes:
             chunk = patch_mod.take(pb, np.arange(s, s + size))
             s += size
-            results.append(lc.refine_batch(
-                self.scene, self.cfg, chunk, self.neighbor_radius, is_seed,
-                rounds, final_filter, generator=self.generator))
+            if self._dp is not None:
+                res = self._refine_dp(chunk, is_seed, rounds, final_filter)
+            else:
+                res = lc.refine_batch(
+                    self.scene, self.cfg, chunk, self.neighbor_radius,
+                    is_seed, rounds, final_filter, generator=self.generator)
+            results.append(res)
         if cuda:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
@@ -283,6 +320,18 @@ class Reconstructor:
         [B]) on the refine's device."""
         return self._merge(self._refine_all_async(pb, is_seed, rounds,
                                                   final_filter))
+
+    def _refine_dp(self, chunk: PatchBatch, is_seed: bool, rounds: int,
+                   final_filter: bool = True, draws=None) -> lc.RefineResult:
+        """Patch-axis data-parallel ``refine_batch``
+        (pais_mvs_tpu/engine/reconstructor.py:273-305): this rank refines
+        its slice of the chunk (flat K1, no view axis) with the stream of
+        its patch index, or with ``draws`` (one PsoDraws per round for the
+        whole chunk) when given; every rank returns the whole chunk."""
+        return refine_sharded(
+            self.scene, self.cfg, chunk, self.neighbor_radius, is_seed,
+            rounds, self._dp, None, final_filter=final_filter, draws=draws,
+            generator=self._patch_generator(self._dp.index))
 
     def _append_to_arena(self, out: PatchBatch, keep: np.ndarray,
                          is_seed: bool) -> np.ndarray:
@@ -648,6 +697,231 @@ class Reconstructor:
         self.stats["expansion_refined"] = total_refined
         self.stats["expansion_pps"] = round(
             total_refined / max(wall, 1e-9), 2)
+        return len(a.live_ids())
+
+    def expand_distributed(self, mesh=None, max_rounds: int = 10_000,
+                           per_shard: int = 256, refine_budget=None,
+                           autosave_path: Optional[str] = None) -> int:
+        """SPMD wavefront expansion over the ranks of a (patch, view) mesh
+        (pais_mvs_tpu/engine/reconstructor.py:990-1191). Returns the live
+        patch count.
+
+        Each round orders the frontier by the configured expansion
+        strategy, bins parents by reference-view cell column (slab
+        ownership), and runs ``parallel.expansion.expand_step``: all-view
+        candidate generation, the three-clause skipNeighborCell against
+        the exchanged cellmate state, plane intersection, the refine,
+        the insert-time re-check and the occupancy update; then merges
+        the accepted patches into the arena. Parents whose candidates the
+        refine budget deferred are re-queued, EXCEPT when the stall guard
+        fires (two consecutive spill rounds with zero inserts: the
+        occupancy cannot have changed), which drops that round's deferred
+        candidates and logs it.
+
+        Every rank of the mesh calls this and runs the same host loop on
+        the same gathered results, so the arenas stay bit-identical and
+        every exit test reads replicated values. ``mesh``: a
+        ``parallel.mesh.Mesh``, or None for the Reconstructor's own mesh,
+        else every rank of the world on the patch axis; a process with no
+        process group runs in a world of one made for the call.
+
+        ``stats["dist_device_s"]`` sums each round's ``expand_step``
+        launch-to-completion span by CUDA events (the host clock on the
+        CPU): it holds the device's idle gaps and the step's host syncs,
+        so it bounds the device's busy time from above."""
+        if mesh is None:
+            mesh = self.mesh
+        if mesh is not None:
+            return self._expand_distributed(mesh, max_rounds, per_shard,
+                                            refine_budget, autosave_path)
+        with mesh_mod.world_mesh(self.device) as m:
+            return self._expand_distributed(m, max_rounds, per_shard,
+                                            refine_budget, autosave_path)
+
+    def _expand_distributed(self, mesh, max_rounds, per_shard, refine_budget,
+                            autosave_path) -> int:
+        from pais_mvs_tpu_torch.parallel import expansion
+
+        cfg = self.cfg
+        a = self.arena
+        dev = self.device
+        S, k = mesh.patch.size, mesh.patch.index
+        vp = mesh.view.size
+        if refine_budget is None:
+            refine_budget = 8 * per_shard
+        cell = cfg.cell_size
+        C_cams = a.num_cams
+        cam_cells = np.stack(
+            [np.asarray([math.ceil(w / cell) for w in self.widths], np.int32),
+             np.asarray([math.ceil(h / cell) for h in self.heights],
+                        np.int32)], axis=-1)                  # [C, 2]
+        gw_cells = int(cam_cells[:, 0].max())
+        gh_cells = int(cam_cells[:, 1].max())
+        slab = max(1, math.ceil(gw_cells / S))
+        scene = (self.scene if vp == 1
+                 else self.scene.view_block(mesh.view.index, vp))
+
+        # per-camera occupancy: counts AND cellmate state (center/normal/
+        # correlation) for the correlation + isNeighbor skip clauses; this
+        # rank keeps its slab of cell columns
+        self._update_neighbor_radius()
+        occ_np, ost_np = expansion.build_occupancy(
+            a, cell, cam_cells, slab, S, gh_cells, cfg.max_cell_patch_num)
+        mine = slice(k * slab, (k + 1) * slab)
+        occ = torch.as_tensor(occ_np[mine], device=dev)
+        ost = torch.as_tensor(ost_np[mine], device=dev)
+        cam_cells_t = torch.as_tensor(cam_cells, device=dev)
+        gen = self._patch_generator(k)
+        on_dev = lambda x: torch.as_tensor(x, device=dev)
+        cuda = dev.type == "cuda"
+
+        t0 = time.time()
+        total_inserted = total_spilled = total_refined = 0
+        stall_rounds = rounds_run = 0
+        t_device = 0.0
+        # per-parent record of candidates that already SPENT their one
+        # refine in a spilled round (mvs.cpp:632-788), fed back as
+        # ``cand_done``; only re-queued parents hold an entry, and the
+        # checkpoint carries it, so a mid-expansion resume stays exact
+        cand_done = self._dist_cand_done
+        self._dist_save_time = a.count // self.autosave_interval
+        for rnd in range(max_rounds):
+            frontier = a.live_ids()
+            frontier = frontier[~a.expanded[frontier]]
+            if len(frontier) == 0:
+                break
+            order = self._strategy_order(frontier)
+            ordered = frontier[order]                         # strategy order
+            refc = a.data["ref_cam"][ordered].astype(np.int32)
+            ipts = a.data["img_point"][ordered, refc]         # [N, 2]
+            owner = np.clip((ipts[:, 0] / cell).astype(int) // slab, 0,
+                            S - 1)
+
+            # shard packing: rank of each parent within its shard (the
+            # stable owner sort keeps the strategy order in each run)
+            by_owner = np.argsort(owner, kind="stable")
+            starts = np.searchsorted(owner[by_owner], np.arange(S))
+            rank = np.arange(len(ordered)) - np.repeat(
+                starts, np.diff(np.r_[starts, len(ordered)]))
+            sel = by_owner[rank < per_shard]                  # kept rows
+            slot = owner[sel] * per_shard + rank[rank < per_shard]
+
+            N = S * per_shard
+            centers = np.zeros((N, 3), np.float32)
+            normals = np.zeros((N, 3), np.float32)
+            orank = np.full(N, 1e30, np.float32)
+            valid = np.zeros(N, bool)
+            pmask = np.zeros((N, C_cams), bool)
+            taken = ordered[sel]
+            centers[slot] = a.data["center"][taken]
+            normals[slot] = a.normals(taken)
+            # the strategy-order position doubles as the device-side serial
+            # rank; renumbered WITHIN the taken subset (values < S *
+            # per_shard): the key cord = orank*(4C+1)+sub is float32, and
+            # full-frontier positions would lose integer exactness past
+            # 2^24/(4C+1) parents
+            rank_in_taken = np.empty(len(sel), np.float32)
+            rank_in_taken[np.argsort(sel, kind="stable")] = \
+                np.arange(len(sel), dtype=np.float32)
+            orank[slot] = rank_in_taken
+            valid[slot] = True
+            pmask[slot] = a.data["cam_mask"][taken]
+            if len(taken) == 0:
+                break
+            a.expanded[taken] = True
+            pdone = np.zeros((N, 4 * C_cams), bool)
+            for j, pid in enumerate(taken):
+                dm = cand_done.get(int(pid))
+                if dm is not None:
+                    pdone[slot[j]] = dm
+
+            if cuda:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            else:
+                h0 = time.perf_counter()
+            out_pb, accepted, occ, ost, spilled, sp_par, ref_cand = \
+                expansion.expand_step(
+                    scene, cfg, on_dev(centers), on_dev(normals),
+                    on_dev(orank), on_dev(valid), on_dev(pmask), occ, ost,
+                    cam_cells_t, self.neighbor_radius, mesh, slab, gh_cells,
+                    cap_per=cfg.max_cell_patch_num,
+                    refine_budget=refine_budget, cand_done=on_dev(pdone),
+                    generator=gen)
+            if cuda:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                ev1.synchronize()
+                t_device += ev0.elapsed_time(ev1) / 1e3
+            else:
+                t_device += time.perf_counter() - h0
+            rounds_run += 1
+            acc = accepted.cpu().numpy()
+            if acc.any():
+                self._append_rows(out_pb.numpy(), np.nonzero(acc)[0],
+                                  is_seed=False)
+                total_inserted += int(acc.sum())
+            rc = ref_cand.cpu().numpy()                       # [N, 4C]
+            total_refined += int(rc.sum())
+            n_spill = int(spilled[0])
+            total_spilled += n_spill
+            requeued = False
+            requeue = np.empty(0, np.int64)
+            if n_spill:
+                # re-queue the parents of budget-deferred candidates (the
+                # reference's queue never drops a candidate); after two
+                # consecutive zero-insert spill rounds the occupancy cannot
+                # change, and the stall guard DROPS the deferred candidates
+                stall_rounds = stall_rounds + 1 if not acc.any() else 0
+                if stall_rounds < 2:
+                    sp = sp_par.cpu().numpy()                 # [N] by slot
+                    requeue = taken[sp[slot]]
+                    a.expanded[requeue] = False
+                    requeued = True
+            else:
+                stall_rounds = 0
+            # refine-exactly-once bookkeeping: re-queued parents accumulate
+            # this round's consumed candidates; the others release theirs
+            requeue_set = set(int(p) for p in requeue)
+            for j, pid in enumerate(taken):
+                pid = int(pid)
+                if pid in requeue_set:
+                    prev = cand_done.get(pid)
+                    cand_done[pid] = (rc[slot[j]] if prev is None
+                                      else prev | rc[slot[j]])
+                else:
+                    cand_done.pop(pid, None)
+            fate = "re-queued" if requeued else "dropped (stall guard)"
+            self._log(f"dist round {rnd}: {len(taken)} parents"
+                      f" -> {int(acc.sum())} inserted"
+                      f" (total {len(a.live_ids())})"
+                      + (f" [refine-budget spill {n_spill}, {fate}]"
+                         if n_spill else ""))
+            if autosave_path and \
+                    a.count // self.autosave_interval > self._dist_save_time:
+                self._dist_save_time = a.count // self.autosave_interval
+                self.save_checkpoint(autosave_path)
+                self._live_snapshot()
+        else:
+            # a round cap that leaves live unexpanded parents must be
+            # LOUD, or a truncated cloud looks like a finished run
+            left = a.live_ids()
+            left = int((~a.expanded[left]).sum())
+            if left:
+                self._log(f"WARNING: expand_distributed stopped at the "
+                          f"max_rounds={max_rounds} cap with {left} "
+                          f"unexpanded frontier patches remaining — the "
+                          f"cloud is truncated (raise max_rounds / "
+                          f"per_shard to finish)")
+        self.grids = None          # host grids rebuilt lazily for the filters
+        wall = time.time() - t0
+        self.stats["dist_expansion_s"] = wall
+        self.stats["dist_device_s"] = round(t_device, 3)
+        self.stats["dist_rounds"] = rounds_run
+        self.stats["dist_inserted"] = total_inserted
+        self.stats["dist_spilled"] = total_spilled
+        self.stats["dist_refined"] = total_refined
+        self.stats["dist_pps"] = round(total_refined / max(wall, 1e-9), 2)
         return len(a.live_ids())
 
     # ------------------------------------------------------------------

@@ -10,6 +10,10 @@ process needs a world of size 1 to run the view-sharded path.
     # LOCAL_RANK, MASTER_ADDR, MASTER_PORT):
     torchrun --nproc_per_node=4 my_script.py   # calls init_distributed()
 
+    # the CLI's flags, as the JAX package's (every process, its own id):
+    python -m pais_mvs_tpu_torch.cli -r scene.nvm --distributed-expansion \
+        --coordinator host0:9876 --num-processes 4 --process-id $ID -o out$ID
+
 Backends: NCCL when each rank has a GPU of its own; gloo for CPU tensors
 and for several ranks that share one card (NCCL refuses two ranks on one
 GPU). A timeout is always passed, so a rank that never arrives fails the
@@ -63,3 +67,34 @@ def init_distributed(init_method: Optional[str] = None,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
     return dev
+
+
+def init_from_flags(coordinator: Optional[str], num_processes: Optional[int],
+                    process_id: Optional[int], device="cuda"
+                    ) -> Optional[torch.device]:
+    """The CLI's ``--coordinator host:port --num-processes N --process-id
+    I`` (``pais_mvs_tpu/parallel/distributed.py:21-41``) as
+    ``init_distributed("tcp://host:port", I, N)``. Returns None when no
+    flag is given (one process, no group); a flag that cannot start a
+    group stops with a ``SystemExit`` naming it."""
+    if coordinator is None:
+        for flag, value in (("--num-processes", num_processes),
+                            ("--process-id", process_id)):
+            if value is not None:
+                raise SystemExit(f"{flag} needs --coordinator host:port")
+        return None
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise SystemExit(f"--coordinator must be host:port (got "
+                         f"{coordinator!r})")
+    if num_processes is None or process_id is None:
+        raise SystemExit("--coordinator needs --num-processes and "
+                         "--process-id")
+    if num_processes < 1:
+        raise SystemExit(f"--num-processes must be at least 1 (got "
+                         f"{num_processes})")
+    if not 0 <= process_id < num_processes:
+        raise SystemExit(f"--process-id {process_id} is outside [0, "
+                         f"{num_processes})")
+    return init_distributed(f"tcp://{coordinator}", process_id,
+                            num_processes, device=device)

@@ -11,15 +11,21 @@ view index), and each axis is a ``torch.distributed`` group:
     compose over it with sums (``ops/view_fitness.py``).
 
 The view code calls collectives only through ``Collective``. A world of
-size 1 is a real process group of one rank.
+size 1 is a real process group of one rank; ``world_mesh`` makes one for
+a single process that has none (the CLI's and ``expand_distributed``'s
+default, the counterpart of ``make_mesh((local_device_count, 1))``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import contextlib
+import tempfile
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from pais_mvs_tpu_torch.parallel.distributed import init_distributed
 
 PATCH_AXIS = "patch"
 VIEW_AXIS = "view"
@@ -32,9 +38,9 @@ class Collective:
     Every reduction is an ``all_reduce`` SUM, which gives every rank of the
     group the same bits. On gloo the tensors are staged through host
     memory (gloo's CUDA support differs by collective and version); NCCL
-    reduces on the card. ``all_gather`` is an all_reduce over a zero-filled
-    buffer in which each rank fills its own block: exact, since x + 0 = x,
-    and one code path for both backends.
+    reduces on the card. ``all_gather`` is ``all_gather_into_tensor`` on
+    NCCL and gloo's list ``all_gather`` through host memory: each rank
+    sends its own block once.
     """
 
     def __init__(self, group, size: int, index: int):
@@ -78,17 +84,45 @@ class Collective:
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Concatenation of every rank's ``x`` along ``dim``, in rank
-        order (``jax.lax.all_gather(..., tiled=True)``)."""
+        order (``jax.lax.all_gather(..., tiled=True)``). bool travels as
+        uint8."""
         dim = dim % x.dim()
-        n = x.shape[dim]
-        shape = list(x.shape)
-        shape[dim] = n * self.size
         is_bool = x.dtype == torch.bool
-        src = x.to(torch.uint8) if is_bool else x
-        buf = torch.zeros(shape, dtype=src.dtype, device=x.device)
-        buf.narrow(dim, self.index * n, n).copy_(src)
-        out = self.psum(buf)
+        src = (x.to(torch.uint8) if is_bool else x).movedim(dim, 0)
+        if self.size == 1:
+            out = src.clone()
+        elif self._host:
+            h = src.to("cpu").contiguous()
+            parts = [torch.empty_like(h) for _ in range(self.size)]
+            dist.all_gather(parts, h, group=self.group)
+            out = torch.cat(parts, 0).to(x.device)
+        else:
+            src = src.contiguous()
+            out = torch.empty((self.size * src.shape[0],) + src.shape[1:],
+                              dtype=src.dtype, device=src.device)
+            dist.all_gather_into_tensor(out, src, group=self.group)
+        out = out.movedim(0, dim)
         return out.bool() if is_bool else out
+
+    def all_gather_rows(self, xs: Sequence[torch.Tensor]) -> list:
+        """``all_gather(x, 0)`` of every tensor in ``xs`` (equal leading
+        sizes), with one collective per dtype: the tensors of a dtype
+        travel side by side as the columns of one [rows, k] block."""
+        n = xs[0].shape[0]
+        out = [None] * len(xs)
+        groups = {}
+        for i, x in enumerate(xs):
+            groups.setdefault(x.dtype, []).append(i)
+        for dtype, idx in groups.items():
+            flat = [xs[i].reshape(n, -1) for i in idx]
+            g = self.all_gather(torch.cat(flat, 1), 0)
+            cols = 0
+            for i, f in zip(idx, flat):
+                k = f.shape[1]
+                out[i] = g[:, cols:cols + k].reshape(
+                    (g.shape[0],) + tuple(xs[i].shape[1:]))
+                cols += k
+        return out
 
 
 class Mesh(NamedTuple):
@@ -124,3 +158,21 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None) -> Mesh:
         if p == pi:
             view = Collective(g, vp, vi)
     return Mesh(patch, view)
+
+
+@contextlib.contextmanager
+def world_mesh(device="cuda") -> Iterator[Mesh]:
+    """This rank's mesh over the initialised world (``make_mesh()``: every
+    rank on the patch axis), or, in a process with no process group, a
+    world of one rank made for the ``with`` block and destroyed at its
+    end: NCCL on a card, gloo on the CPU, meeting in a ``FileStore`` in a
+    temporary directory."""
+    if dist.is_initialized():
+        yield make_mesh()
+        return
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed(f"file://{d}/store", 0, 1, device=device)
+        try:
+            yield make_mesh((1, 1))
+        finally:
+            dist.destroy_process_group()

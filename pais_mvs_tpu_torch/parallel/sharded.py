@@ -17,7 +17,7 @@ psum they share mixes different particles without a sign
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -55,26 +55,31 @@ def _generator(seed: int, patch, device) -> torch.Generator:
 def refine_sharded(scene_block, cfg: MvsConfig, pb: PatchBatch,
                    neighbor_radius, is_seed: bool, rounds: int, patch, view,
                    seed: int = 0, final_filter: bool = True,
-                   draws: Sequence[PsoDraws] | None = None
+                   draws: Sequence[PsoDraws] | None = None,
+                   generator: torch.Generator | None = None
                    ) -> lc.RefineResult:
     """``refine_batch`` over the layout. ``pb`` is the whole batch (the
     same on every rank; B divisible by the patch axis); ``scene_block`` is
-    this rank's camera block. Each patch rank refines its slice with
-    ``refine_batch(view=view)``, its PSO drawing from
-    ``patch_seed(seed, patch.index)`` (or from the slice of ``draws``, one
-    ``PsoDraws`` per round for the whole batch). Returns the whole refined
-    batch on every rank."""
+    this rank's camera block (the whole scene with ``view=None``). Each
+    patch rank refines its slice with ``refine_batch(view=view)``, its PSO
+    drawing from the slice of ``draws`` (one ``PsoDraws`` per round for
+    the whole batch) when given, else from ``generator`` (a stream the
+    caller seeded from the patch index and continues across calls), else
+    from a fresh stream of ``patch_seed(seed, patch.index)``. Returns the
+    whole refined batch on every rank."""
     sl = _patch_slice(pb.capacity, patch)
     local = _map(lambda t: t[sl], pb)
+    if draws is None and generator is None:
+        generator = _generator(seed, patch, pb.device)
     res = lc.refine_batch(
         scene_block, cfg, local, neighbor_radius, is_seed, rounds,
-        final_filter,
-        generator=None if draws is not None else _generator(seed, patch,
-                                                            pb.device),
+        final_filter, generator=None if draws is not None else generator,
         draws=None if draws is None else [_slice_draws(d, sl) for d in draws],
         view=view)
-    gather = functools.partial(patch.all_gather, dim=0)
-    return lc.RefineResult(_map(gather, res.batch), gather(res.iterations))
+    names = [f.name for f in dataclasses.fields(PatchBatch)]
+    got = patch.all_gather_rows([getattr(res.batch, f) for f in names]
+                                + [res.iterations])
+    return lc.RefineResult(PatchBatch(**dict(zip(names, got))), got[-1])
 
 
 def sharded_pso_refine(scene_block, cfg: MvsConfig, ref_cam, cam_mask, lod,

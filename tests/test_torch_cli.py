@@ -4,13 +4,16 @@ reference's artifacts, a mid-run autosave (and its live snapshot), the
 ``-r auto_save.mvs`` resume from it, ``-r`` from an ``.mvs`` without a
 sidecar, bit-determinism for a fixed rngSeed; ``-r`` on an NVM without
 sparse points (feature seeding), ``-r -b`` (bundle adjustment), ``-v
---patch-id --reoptimize``, ``-a`` and ``--profile``; a clean SystemExit
-for every flag outside the port, and no silent fallback to the CPU when
-the GPU is missing."""
+--patch-id --reoptimize``, ``-a`` and ``--profile``; ``-r
+--distributed-expansion`` in a world of one and in two processes joined by
+``--coordinator`` (bit-equal clouds); a clean SystemExit for every
+multi-process flag that cannot lay out the run, and no silent fallback to
+the CPU when the GPU is missing."""
 
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 
@@ -236,21 +239,95 @@ def test_profile_writes_a_trace(reconstructed, tmp_path):
     assert (tmp_path / "animate.ply").exists()
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["-r", "scene.nvm", "--distributed-expansion"], 11),
-    (["-r", "scene.nvm", "--distributed-expansion", "--mesh-shape", "4,x"],
-     11),
-    (["-r", "scene.nvm", "--mesh-shape", "2"], 11),
-    (["-r", "scene.nvm", "--coordinator", "localhost:1234"], 11),
-    (["-r", "scene.nvm", "--num-processes", "2"], 11),
-    (["-r", "scene.nvm", "--process-id", "0"], 11)])
-def test_modes_outside_the_port_exit_cleanly(disk_scene, monkeypatch, argv,
-                                             item):
+@pytest.mark.parametrize("argv,msg", [
+    (["--distributed-expansion", "--mesh-shape", "4,x"],
+     "--mesh-shape must be dp,vp"),
+    (["--mesh-shape", "2"], "--mesh-shape must be dp,vp"),
+    (["--distributed-expansion", "--mesh-shape", "1,3"],
+     "view axis 3 must divide the camera count 4"),
+    (["--distributed-expansion", "--mesh-shape", "2,1"],
+     "needs 2 processes, the run has 1"),
+    (["--num-processes", "2"], "--num-processes needs --coordinator"),
+    (["--process-id", "0"], "--process-id needs --coordinator"),
+    (["--coordinator", "localhost:1234", "--num-processes", "2",
+      "--process-id", "2"], "--process-id 2 is outside [0, 2)"),
+    (["--coordinator", "localhost", "--num-processes", "2",
+      "--process-id", "0"], "--coordinator must be host:port")])
+def test_bad_multi_process_flags_exit_cleanly(disk_scene, monkeypatch,
+                                              tmp_path, argv, msg):
+    """A flag that cannot lay out the run stops with a SystemExit naming
+    it, before any refine (nothing is written)."""
     d, _ = disk_scene
     monkeypatch.chdir(d)
     with pytest.raises(SystemExit) as e:
-        cli.main(argv + ["--device", "cpu"])
-    assert f"ROADMAP Queue 1 item {item}" in str(e.value.code)
+        cli.main(["-r", "scene.nvm", "-o", str(tmp_path)] + argv
+                 + ["--device", "cpu"])
+    assert msg in str(e.value.code)
+    assert not (tmp_path / "init.mvs").exists()
+
+
+def test_distributed_expansion_in_a_world_of_one(disk_scene, monkeypatch,
+                                                 tmp_path):
+    d, sc = disk_scene
+    monkeypatch.chdir(d)
+    monkeypatch.setattr(Reconstructor, "autosave_interval", 40)
+    assert cli.main(["-r", "scene.nvm", "--distributed-expansion", "-o",
+                     str(tmp_path), "--device", "cpu"]) == 0
+    for name in ("init.mvs", "seed.mvs", "exp.mvs", "auto_save.mvs",
+                 "auto_save.mvs.state.npz", "exp.ply", "exp.psr",
+                 "stats.json", "log.txt"):
+        assert (tmp_path / name).exists(), name
+    assert "dist round 0:" in (tmp_path / "log.txt").read_text()
+    f = mvsbin.read_mvs(str(tmp_path / "exp.mvs"))
+    assert len(f.patches.centers) > 80
+    assert np.median(sc.surface_distance(f.patches.centers)) < 0.01
+    stats = json.loads((tmp_path / "stats.json").read_text())
+    assert stats["live_patches"] == len(f.patches.centers)
+    assert stats["dist_refined"] > 0 and stats["dist_rounds"] > 1
+    assert 0 < stats["dist_device_s"] <= stats["dist_expansion_s"] + 1e-3
+    assert not torch.distributed.is_initialized()
+
+
+def test_two_processes_write_equal_clouds(disk_scene, tmp_path):
+    """Two CPU processes joined by --coordinator: the data-parallel seed
+    refine (dataParallel on) and the distributed expansion; both write
+    the same exp.mvs."""
+    d, sc = disk_scene
+    work = tmp_path / "scene"
+    shutil.copytree(d, work, ignore=shutil.ignore_patterns(
+        "*.mvs", "*.ply", "*.psr", "*.npz", "*.json", "log.txt", "r*",
+        "from_*", "rec"))
+    (work / "config.txt").write_text(CONFIG + "dataParallel on\n")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pais_mvs_tpu_torch.cli", "-r", "scene.nvm",
+         "--distributed-expansion", "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(i), "-o",
+         str(tmp_path / f"out{i}"), "--device", "cpu"],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=150))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:]
+                                                     for o in outs]
+    logs = [(tmp_path / f"out{i}" / "log.txt").read_text() for i in (0, 1)]
+    assert all("data-parallel refine over 2 ranks" in t for t in logs)
+    a, b = ((tmp_path / f"out{i}" / "exp.mvs").read_bytes() for i in (0, 1))
+    assert a == b
+    f = mvsbin.read_mvs(str(tmp_path / "out0" / "exp.mvs"))
+    assert len(f.patches.centers) > 80
+    assert np.median(sc.surface_distance(f.patches.centers)) < 0.01
 
 
 def test_no_fallback_without_gpu(disk_scene):

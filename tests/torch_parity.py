@@ -31,3 +31,14 @@ def refine_draws(key, rounds, B, P, max_iteration):
     which hands gln_pso ``fold_in(key, round)`` (lifecycle.py:438)."""
     return [jax_draws(jax.random.fold_in(key, r), B, P, 3, max_iteration)
             for r in range(rounds)]
+
+
+def concat_draws(per_shard):
+    """One PsoDraws per round for a whole batch from the lists of its
+    shards' (each shard's ``refine_draws``), shard after shard: the
+    uniforms JAX's shard k draws under ``fold_in(key, k)`` land on the
+    port's rows of patch rank k."""
+    return [PsoDraws(torch.cat([d[r].pos for d in per_shard]),
+                     torch.cat([d[r].vel for d in per_shard]),
+                     torch.cat([d[r].steps for d in per_shard], 2))
+            for r in range(len(per_shard[0]))]
