@@ -151,6 +151,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      phase 3's tolerances) on the arguments of their first call inside
      the expansion (the scale-2 atlas's one-camera block, the refine's
      rows of round 0).
+ 25. the refine as CUDA graphs (``ops/graphs.py``), graphed against
+     eager at the same generator seeds: (a) the flat seed round at the
+     bench workload, (c) phase 15's expansion chunk and (b) the view round
+     through an NCCL world of one, each the key's first call (eager, then
+     the capture) and two replays, bit-equal in every field with the eager
+     round's launches per call; (f) capture time per key, the pool's bytes
+     and peak memory; (e) ten alternating eager/graphed pairs of the flat
+     round, the chunk and the view round (CUDA events, median and IQR)
+     and one profiled call each way (device busy share); (d)
+     ``cli.main(["-r", ...])`` on phase 16's files eager
+     (``Reconstructor(graphs=False)``) and graphed in turns, twice each: exp.mvs byte-equal to phase 16's, the same
+     launch totals and the logged counts (graphed: 1-6 captures, no eager
+     refine; eager: no capture); (g) each run's expansion wall, the
+     refines' spans and the host's time inside ``_refine_all_async``.
+     Phase 16's ``-r`` and every later one run graphed (the default).
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
@@ -1183,6 +1198,261 @@ def run_vp_workers(world, payload, timeout_s=400.0, flag="--vp-rank"):
             timeout_s)
         return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
                 for r in range(world)]
+
+
+def differing_fields(a, b) -> list:
+    """Names of the fields of two RefineResults whose bits differ."""
+    import dataclasses
+    import torch
+    from pais_mvs_tpu_torch.models.patch import PatchBatch
+    diff = [f.name for f in dataclasses.fields(PatchBatch)
+            if not torch.equal(getattr(a.batch, f.name),
+                               getattr(b.batch, f.name))]
+    return diff + ([] if torch.equal(a.iterations, b.iterations)
+                   else ["iterations"])
+
+
+def event_ms(fn):
+    """(ms by CUDA events around one call, ms by the host clock), after a
+    synchronise: the events open when the stream reaches the call, so a
+    call the host enqueues slower than the device runs is timed at the
+    host's pace."""
+    import torch
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
+
+
+def median_iqr(xs):
+    q1, med, q3 = np.percentile(np.asarray(xs, dtype=np.float64),
+                                [25, 50, 75])
+    return float(med), float(q3 - q1)
+
+
+def graphs_line(lines):
+    """{"captured": n, "replayed": m, "eager": k} of the last "refine
+    graphs:" line of a run's log, and the logged eager reasons."""
+    last = [ln for ln in lines if "refine graphs: captured" in ln]
+    if not last:
+        fail("the run's log has no \"refine graphs:\" line")
+    words = last[-1].split("refine graphs: ", 1)[1].replace(";", ",")
+    counts = {}
+    for part in words.split(","):
+        k, _, v = part.strip().partition(" ")
+        if k in ("captured", "replayed", "eager"):
+            counts[k] = int(v)
+    reasons = sorted({ln.split("refine runs eagerly: ", 1)[1] for ln in lines
+                      if "refine runs eagerly: " in ln})
+    return counts, reasons
+
+
+def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
+    """Phase 25: ``ops/graphs.py``'s graphed refine against the eager one.
+    (a) the flat seed round at the bench workload, (c) phase 15's
+    expansion chunk and (b) the view round through an NCCL world of one
+    (vp = 1): the key's first call (eager, then the capture) and two
+    replays on new seeds, each bit-equal to the eager refine at its seed,
+    with the launches of the eager round per call; (f) each capture's
+    time, the pool's bytes and peak device memory; (e) ten alternating
+    eager/graphed pairs of the flat round, the chunk and the view round
+    (CUDA events; median and IQR) and one profiled call of each arm
+    (device busy share); (d) ``cli.main(["-r", ...])`` on phase 16's files twice each
+    way, eager (``Reconstructor(graphs=False)``) and graphed, in turns:
+    every exp.mvs byte-equal to phase 16's, the same launch totals, the
+    logged counts (graphed: at most one capture per key, at most 6, no
+    eager refine; eager: no capture), and (g) the expansion's wall, the
+    refines' launch-to-completion spans and the host's time inside
+    ``_refine_all_async`` each way. Returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pais_mvs_tpu_torch import cli
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    from pais_mvs_tpu_torch.ops.graphs import RefineGraphs
+    from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+    from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+    from pais_mvs_tpu_torch.parallel.sharded import refine_sharded
+
+    out = {}
+    zero = dict.fromkeys(CF.LAUNCHES, 0)
+    T = cfg.max_iteration
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    G = RefineGraphs()
+
+    def held(label, eager, graphed, expect):
+        for seed in (100, 101, 102):
+            CF.reset_launch_counts()
+            want = eager(seed)
+            torch.cuda.synchronize()
+            le = dict(CF.LAUNCHES)
+            CF.reset_launch_counts()
+            got = graphed(seed)
+            torch.cuda.synchronize()
+            lg = dict(CF.LAUNCHES)
+            if le != {**zero, **expect} or lg != le:
+                fail(f"graphs {label} seed {seed}: launches eager {le}, "
+                     f"graphed {lg}, expected {expect}")
+            diff = differing_fields(got, want)
+            if diff:
+                fail(f"graphs {label} seed {seed}: the graphed refine's "
+                     f"bits differ from the eager refine's in {diff}")
+        log(f"graphs {label}: the first call (eager, then the capture) and "
+            f"two replays bit-equal to the eager refine at their seeds, "
+            f"every PatchBatch field and the iterations; launches per call "
+            f"{expect}")
+
+    flat_e = lambda s: lc.refine_batch(scene, cfg, pb, 0.005, True, 1,
+                                       generator=gen(s))
+    flat_g = lambda s: G.refine(scene, cfg, pb, 0.005, True, 1,
+                                generator=gen(s))
+    held(f"(a) flat seed round (B={pb.capacity}, P={2 * cfg.particle_num}, "
+         f"T={2 * T})", flat_e, flat_g,
+         {"fitness": 1 + 2 * T, "sampler": 1})
+    chunk_e = lambda s: lc.refine_batch(scene, cfg, pb, 0.005, False, 1,
+                                        generator=gen(s))
+    chunk_g = lambda s: G.refine(scene, cfg, pb, 0.005, False, 1,
+                                 generator=gen(s))
+    held(f"(c) expansion chunk (B={pb.capacity}, P={cfg.particle_num}, "
+         f"T={T})", chunk_e, chunk_g, {"fitness": 1 + T, "sampler": 1})
+    init_distributed(f"tcp://localhost:{free_port()}", 0, 1,
+                     backend="nccl", device="cuda")
+    mesh = make_mesh((1, 1))
+    block = scene.view_block(0, 1)
+    view_e = lambda s: refine_sharded(block, cfg, pb, 0.005, True, 1,
+                                      mesh.patch, mesh.view, seed=s)
+    view_g = lambda s: refine_sharded(block, cfg, pb, 0.005, True, 1,
+                                      mesh.patch, mesh.view, seed=s,
+                                      refine=G.refine)
+    held("(b) view round (NCCL world of one, vp=1)", view_e, view_g,
+         {"view_moments": 1 + 2 * T, "view_deviation": 1 + 2 * T,
+          "sampler": 1})
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    if G.counts != {"captured": 3, "replayed": 6, "eager": 0}:
+        fail(f"graphs: counts {G.counts}, expected 3 captures (flat, "
+             f"chunk, view) and 6 replays")
+    out["capture_s"] = G.capture_s
+    out["pool_bytes"] = G.pool_bytes
+    log(f"graphs (f): capture {', '.join(f'{t:.3f}' for t in G.capture_s)}"
+        f" s per key (flat, chunk, view); pool {G.pool_bytes} bytes "
+        f"({G.pool_bytes / 2 ** 30:.3f} GiB); peak device memory over "
+        f"(a)-(c) {peak:.3f} GiB above the script's "
+        f"{base_mem / 2 ** 30:.3f}")
+
+    #     (e) ten alternating pairs each, then one profiled round each way
+    for label, eager, graphed in (("flat", flat_e, flat_g),
+                                  ("chunk", chunk_e, chunk_g),
+                                  ("view", view_e, view_g)):
+        ms = {"eager": [], "graphed": []}
+        host = {"eager": [], "graphed": []}
+        for i in range(10):
+            arms = (("eager", eager), ("graphed", graphed))
+            for arm, fn in (arms if i % 2 == 0 else arms[::-1]):
+                d, h = event_ms(lambda: fn(200 + i))
+                ms[arm].append(d)
+                host[arm].append(h)
+        ratio = [e / g for e, g in zip(ms["eager"], ms["graphed"])]
+        busy = {}
+        for arm, fn in (("eager", eager), ("graphed", graphed)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(300)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            b, n_act = device_busy_s(prof)
+            busy[arm] = (b * 1e3, wall * 1e3, n_act)
+            del prof
+        stats = {arm: median_iqr(v) for arm, v in ms.items()}
+        out[label] = dict(ms=ms, host_ms=host, ratio=median_iqr(ratio),
+                          busy=busy)
+        log(f"graphs (e) {label} round, ten alternating pairs (CUDA "
+            f"events): eager median {stats['eager'][0]:.2f} ms (IQR "
+            f"{stats['eager'][1]:.2f}), graphed median "
+            f"{stats['graphed'][0]:.2f} ms (IQR {stats['graphed'][1]:.2f});"
+            f" eager/graphed per pair median {out[label]['ratio'][0]:.3f} "
+            f"(IQR {out[label]['ratio'][1]:.3f}); host clock medians "
+            f"{median_iqr(host['eager'])[0]:.2f} / "
+            f"{median_iqr(host['graphed'])[0]:.2f} ms; all eager "
+            f"{[round(x, 2) for x in ms['eager']]}, all graphed "
+            f"{[round(x, 2) for x in ms['graphed']]}")
+        for arm, (b, wall, n_act) in busy.items():
+            log(f"graphs (e) {label} round profiled, {arm}: device busy "
+                f"{b:.2f} ms over {n_act} device activities in {wall:.2f} "
+                f"ms, idle share {1 - b / wall:.3f}")
+    del G, view_g, flat_g, chunk_g
+    torch.distributed.destroy_process_group()
+    torch.cuda.synchronize()
+
+    #     (d) and (g): -r eager and graphed, in turns, on phase 16's files
+    with open(exp_path, "rb") as f:
+        exp16 = f.read()
+    real = cli.Reconstructor
+    runs = []
+    for k, graphs in enumerate((False, True, True, False)):
+        d = os.path.join(work, f"graphs_r{k}")
+        os.makedirs(d)
+        cli.Reconstructor = functools.partial(real, graphs=graphs)
+        CF.reset_launch_counts()
+        t0 = time.time()
+        try:
+            rc, lines = run_cli(["-r", nvm, "-o", d], work)
+        finally:
+            cli.Reconstructor = real
+        torch.cuda.synchronize()
+        r_s = time.time() - t0
+        if rc != 0:
+            fail(f"graphs (d): -r with graphs={graphs} exit code {rc}")
+        with open(os.path.join(d, "exp.mvs"), "rb") as f:
+            same = f.read() == exp16
+        with open(os.path.join(d, "stats.json")) as f:
+            st = json.load(f)
+        with open(os.path.join(d, "log.txt")) as f:
+            counts, reasons = graphs_line(f.read().splitlines())
+        runs.append(dict(graphs=graphs, s=r_s, launches=dict(CF.LAUNCHES),
+                         counts=counts, reasons=reasons, same=same,
+                         **{k_: st[k_] for k_ in (
+                             "expansion_s", "expansion_device_s",
+                             "expansion_refine_host_s", "refine_host_s",
+                             "seed_refine_s", "refine_graph_capture_s",
+                             "refine_graph_pool_bytes",
+                             "expansion_refined")}))
+        log(f"graphs (d) -r graphs={graphs}: {r_s:.1f} s; exp.mvs "
+            f"{'byte-equal to' if same else 'DIFFERS from'} phase 16's; "
+            f"launches {runs[-1]['launches']}; log: {counts}, eager "
+            f"reasons {reasons}; (g) expansion {st['expansion_s']:.3f} s, "
+            f"the refines' spans {st['expansion_device_s']:.3f} s, host "
+            f"inside _refine_all_async {st['expansion_refine_host_s']:.3f} "
+            f"s (seed stage and expansion {st['refine_host_s']:.3f} s), "
+            f"seeds {st['seed_refine_s']:.3f} s; captures "
+            f"{st['refine_graph_capture_s']:.3f} s, pool "
+            f"{st['refine_graph_pool_bytes']} bytes")
+    for r in runs:
+        if not r["same"]:
+            fail(f"graphs (d): -r with graphs={r['graphs']} wrote other "
+                 f"exp.mvs bytes than phase 16")
+        if r["launches"] != runs[0]["launches"]:
+            fail(f"graphs (d): launch totals {r['launches']} against "
+                 f"{runs[0]['launches']}")
+        c = r["counts"]
+        if r["graphs"] and not (1 <= c["captured"] <= 6 and c["replayed"]
+                                and c["eager"] == 0):
+            fail(f"graphs (d): the graphed -r logged {c} (expected 1-6 "
+                 f"captures, replays, no eager refine)")
+        if not r["graphs"] and (c["captured"] or c["replayed"]
+                                or not c["eager"]):
+            fail(f"graphs (d): the eager -r logged {c}")
+    out["r"] = runs
+    return out
 
 
 def main():
@@ -2357,6 +2627,10 @@ def main():
              f"{ag24[0]:.3f} / {ag24[1]:.3f} with vp=1's (gate >= 0.9), "
              f"median {med5:.6f} (gate < 2.5e-3)")
     del rec1
+
+    # 25. the refine as CUDA graphs (ops/graphs.py), graphed against eager
+    #     at the same generator seeds
+    graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev)
     shutil.rmtree(work)
 
     kernels = [

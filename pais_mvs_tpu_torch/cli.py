@@ -376,14 +376,15 @@ def run_view(path: str, out_dir: str = ".",
     # .mvs does not embed it) so the depth-search bounds match the
     # original reconstruction's.
     import torch
-    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    from pais_mvs_tpu_torch.ops.graphs import EAGER_SINGLE
     ext = p.centers.max(0) - p.centers.min(0)
     vol = float(abs(ext[0] * ext[1] * ext[2]))
     if vol > 0:
         rec.neighbor_radius = vol ** (1.0 / 3.0) * cfg.neighbor_radius_scalar
     gen = torch.Generator(rec.device).manual_seed(cfg.rng_seed)
-    res = lc.refine_batch(rec.scene, cfg, patch_mod.take(pb, [i]),
-                          rec.neighbor_radius, True, 1, generator=gen)
+    refine = rec.graphs.eager_refine(EAGER_SINGLE)
+    res = refine(rec.scene, cfg, patch_mod.take(pb, [i]),
+                 rec.neighbor_radius, True, 1, generator=gen)
     nb = res.batch.numpy()
     print(f"re-optimized: fitness {float(p.fitness[i]):.6f} -> "
           f"{float(nb['fitness'][0]):.6f}, "

@@ -17,10 +17,18 @@ capacity semantics are enforced host-side in parent-priority order, so
 Division of labour: the device owns all pixel math (PSO/fitness/NCC/LOD);
 the host owns the ragged bookkeeping (arena, cell buckets, frontier), in
 numpy and the native runtime (``native/``).
+
+On the card every seed round and expansion chunk replays the refine from
+a CUDA graph captured once per signature (``ops/graphs.py``, the
+counterpart of the JAX package's jitted ``refine_batch``);
+``Reconstructor(graphs=False)`` refines eagerly, and the stated eager
+paths (the CPU, ``psoExitChunk > 0``, a gloo mesh, ``expand_step``'s
+prefix refine) are logged once and counted in ``stats["refine_graphs"]``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -41,9 +49,17 @@ from pais_mvs_tpu_torch.io.pointcloud import write_ply, write_psr
 from pais_mvs_tpu_torch.models import patch as patch_mod
 from pais_mvs_tpu_torch.models.camera import CameraParams, Scene, build_scene
 from pais_mvs_tpu_torch.models.patch import PatchBatch
+from pais_mvs_tpu_torch.ops import graphs as graphs_mod
 from pais_mvs_tpu_torch.ops import lifecycle as lc
 from pais_mvs_tpu_torch.parallel import mesh as mesh_mod
 from pais_mvs_tpu_torch.parallel.sharded import patch_seed, refine_sharded
+
+
+def _log_to(logger, verbose: bool, msg: str) -> None:
+    if logger is not None:
+        logger.log(msg)
+    elif verbose:
+        print(msg, flush=True)
 
 
 class Reconstructor:
@@ -54,7 +70,7 @@ class Reconstructor:
     def __init__(self, params: Sequence[CameraParams],
                  images: Sequence[np.ndarray], cfg: MvsConfig,
                  verbose: bool = True, use_native: Optional[bool] = None,
-                 logger=None, device="cuda", mesh=None):
+                 logger=None, device="cuda", mesh=None, graphs: bool = True):
         self.cfg = cfg
         self.params = list(params)
         self.verbose = verbose
@@ -91,7 +107,19 @@ class Reconstructor:
         self.np_R = f64(rig.R)
         self.np_focal = f64(rig.focal)
         self.np_principal = f64(rig.principal)
-        self.stats: Dict[str, float] = {"scene_build_s": round(_scene_s, 2)}
+        # the refine's CUDA graphs (ops/graphs.py), one per signature, in
+        # one memory pool freed with this object; graphs=False is the eager
+        # arm. A mesh on gloo refines eagerly: its collectives stage
+        # through host memory
+        self.graphs = graphs_mod.RefineGraphs(
+            enabled=graphs, log=functools.partial(_log_to, logger, verbose))
+        gloo = mesh is not None and not (mesh.patch.capturable
+                                         and mesh.view.capturable)
+        self._refine = (self.graphs.eager_refine(graphs_mod.EAGER_GLOO)
+                        if gloo else self.graphs.refine)
+        self.stats: Dict[str, object] = {
+            "scene_build_s": round(_scene_s, 2),
+            "refine_graphs": self.graphs.counts, "refine_host_s": 0.0}
         self._seed_pb: Optional[PatchBatch] = None
         # PSO stream of the multi-rank paths, made on first use
         self._patch_gen: Optional[torch.Generator] = None
@@ -111,10 +139,15 @@ class Reconstructor:
     # logging
     # ------------------------------------------------------------------
     def _log(self, msg: str):
-        if self.logger is not None:
-            self.logger.log(msg)
-        elif self.verbose:
-            print(msg, flush=True)
+        _log_to(self.logger, self.verbose, msg)
+
+    def _log_graphs(self):
+        """Record and log the refine graphs' counts, capture time and
+        pool."""
+        self.stats["refine_graph_capture_s"] = round(
+            sum(self.graphs.capture_s), 3)
+        self.stats["refine_graph_pool_bytes"] = self.graphs.pool_bytes
+        self._log(self.graphs.summary())
 
     # ------------------------------------------------------------------
     # seeds
@@ -209,6 +242,7 @@ class Reconstructor:
         self._log(f"seeds: {n}/{B} accepted in {dt:.2f}s "
                   f"({rounds_run} rounds, neighborRadius "
                   f"{self.neighbor_radius:.5f})")
+        self._log_graphs()
         return n
 
     # ------------------------------------------------------------------
@@ -254,7 +288,11 @@ class Reconstructor:
         last. While the host enqueues slower than the device runs, the
         span holds the device's idle gaps too, so it bounds the device's
         busy time from above and is not that time. On the CPU it is the
-        host clock around the dispatch, which is the work."""
+        host clock around the dispatch, which is the work.
+        ``stats["refine_host_s"]`` sums the host's time in here: the
+        chunking, the draws and the launches or graph replays (and each
+        key's first run and capture)."""
+        t_host = time.perf_counter()
         cuda = self.device.type == "cuda"
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
@@ -276,7 +314,7 @@ class Reconstructor:
             if self._dp is not None:
                 res = self._refine_dp(chunk, is_seed, rounds, final_filter)
             else:
-                res = lc.refine_batch(
+                res = self._refine(
                     self.scene, self.cfg, chunk, self.neighbor_radius,
                     is_seed, rounds, final_filter, generator=self.generator)
             results.append(res)
@@ -286,6 +324,7 @@ class Reconstructor:
             timer = (start, end)
         else:
             timer = time.perf_counter() - h0
+        self.stats["refine_host_s"] += time.perf_counter() - t_host
         return results, B, timer
 
     @staticmethod
@@ -331,7 +370,8 @@ class Reconstructor:
         return refine_sharded(
             self.scene, self.cfg, chunk, self.neighbor_radius, is_seed,
             rounds, self._dp, None, final_filter=final_filter, draws=draws,
-            generator=self._patch_generator(self._dp.index))
+            generator=self._patch_generator(self._dp.index),
+            refine=self._refine)
 
     def _append_to_arena(self, out: PatchBatch, keep: np.ndarray,
                          is_seed: bool) -> np.ndarray:
@@ -533,6 +573,7 @@ class Reconstructor:
         t0 = time.time()
         total_refined = 0
         t_device = 0.0
+        host0 = self.stats["refine_host_s"]
         self._save_time = a.count // self.autosave_interval
         pipeline = cfg.pipeline_expansion
         C = self.scene.num_cameras
@@ -697,6 +738,9 @@ class Reconstructor:
         self.stats["expansion_refined"] = total_refined
         self.stats["expansion_pps"] = round(
             total_refined / max(wall, 1e-9), 2)
+        self.stats["expansion_refine_host_s"] = round(
+            self.stats["refine_host_s"] - host0, 3)
+        self._log_graphs()
         return len(a.live_ids())
 
     def expand_distributed(self, mesh=None, max_rounds: int = 10_000,
@@ -772,6 +816,7 @@ class Reconstructor:
         ost = torch.as_tensor(ost_np[mine], device=dev)
         cam_cells_t = torch.as_tensor(cam_cells, device=dev)
         gen = self._patch_generator(k)
+        prefix_refine = self.graphs.eager_refine(graphs_mod.EAGER_PREFIX)
         on_dev = lambda x: torch.as_tensor(x, device=dev)
         cuda = dev.type == "cuda"
 
@@ -847,7 +892,7 @@ class Reconstructor:
                     cam_cells_t, self.neighbor_radius, mesh, slab, gh_cells,
                     cap_per=cfg.max_cell_patch_num,
                     refine_budget=refine_budget, cand_done=on_dev(pdone),
-                    generator=gen)
+                    generator=gen, refine=prefix_refine)
             if cuda:
                 ev1 = torch.cuda.Event(enable_timing=True)
                 ev1.record()
@@ -922,6 +967,7 @@ class Reconstructor:
         self.stats["dist_spilled"] = total_spilled
         self.stats["dist_refined"] = total_refined
         self.stats["dist_pps"] = round(total_refined / max(wall, 1e-9), 2)
+        self._log_graphs()
         return len(a.live_ids())
 
     # ------------------------------------------------------------------

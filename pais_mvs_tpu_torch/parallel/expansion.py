@@ -38,7 +38,7 @@ else is rig and occupancy math, the same on every view rank.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -189,7 +189,8 @@ def expand_step(scene, cfg: MvsConfig, centers, normals, order_rank, valid,
                 neighbor_radius, mesh, slab_cols: int, grid_h: int,
                 cap_per: int, refine_budget: int, cand_done=None,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[PsoDraws] = None):
+                draws: Optional[PsoDraws] = None,
+                refine: Optional[Callable] = None):
     """One COMPLETE distributed expansion round (see module docstring);
     ``pais_mvs_tpu/parallel/expansion.py:218-499``.
 
@@ -206,7 +207,8 @@ def expand_step(scene, cfg: MvsConfig, centers, normals, order_rank, valid,
     than one rank. PSO: ``draws`` (one PsoDraws for the round's whole
     refined batch, S*refine_budget rows, patch rank k's rows from
     k*refine_budget on) when given, else ``generator``, which must be
-    seeded from the patch index alone.
+    seeded from the patch index alone. ``refine``: the refine, with
+    ``refine_batch``'s signature (default ``refine_batch``).
 
     Returns (refined PatchBatch [S*refine_budget rows, every rank's],
     accepted [S*refine_budget] bool, this rank's new occ_cnt and
@@ -357,15 +359,16 @@ def expand_step(scene, cfg: MvsConfig, centers, normals, order_rank, valid,
     view = mesh.view if vp > 1 else None
     n_run = max(int(patch.all_gather(keep.sum().reshape(1), 0).max()), 1)
     head = patch_mod.take(pb, ar(n_run))
-    rb = lc.refine_batch(
+    refine = refine or lc.refine_batch
+    rb = refine(
         scene, cfg, head, neighbor_radius, False, 1,
         generator=None if draws is not None else generator,
         draws=None if draws is None else [PsoDraws(
             draws.pos[k * R:k * R + n_run], draws.vel[k * R:k * R + n_run],
             draws.steps[:, :, k * R:k * R + n_run])], view=view).batch
     if n_run < R:
-        tail = lc.refine_batch(scene, cfg, patch_mod.take(pb, ar(R)[n_run:]),
-                               neighbor_radius, False, 0, view=view).batch
+        tail = refine(scene, cfg, patch_mod.take(pb, ar(R)[n_run:]),
+                      neighbor_radius, False, 0, view=view).batch
         rb = patch_mod.concat(rb, tail)
     acc0 = rb.valid
 

@@ -49,6 +49,12 @@ class Collective:
         self.index = index
         self._host = dist.get_backend(group) == "gloo"
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this axis's collectives: NCCL
+        runs them on the card; gloo stages them through host memory."""
+        return not self._host
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of ``x`` over the axis (a new tensor; ``x`` is untouched).
         bf16/f16 reduce in f32 and come back in their own dtype; bool is

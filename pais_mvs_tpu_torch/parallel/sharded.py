@@ -18,7 +18,7 @@ psum they share mixes different particles without a sign
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -56,8 +56,8 @@ def refine_sharded(scene_block, cfg: MvsConfig, pb: PatchBatch,
                    neighbor_radius, is_seed: bool, rounds: int, patch, view,
                    seed: int = 0, final_filter: bool = True,
                    draws: Sequence[PsoDraws] | None = None,
-                   generator: torch.Generator | None = None
-                   ) -> lc.RefineResult:
+                   generator: torch.Generator | None = None,
+                   refine: Callable | None = None) -> lc.RefineResult:
     """``refine_batch`` over the layout. ``pb`` is the whole batch (the
     same on every rank; B divisible by the patch axis); ``scene_block`` is
     this rank's camera block (the whole scene with ``view=None``). Each
@@ -65,13 +65,16 @@ def refine_sharded(scene_block, cfg: MvsConfig, pb: PatchBatch,
     drawing from the slice of ``draws`` (one ``PsoDraws`` per round for
     the whole batch) when given, else from ``generator`` (a stream the
     caller seeded from the patch index and continues across calls), else
-    from a fresh stream of ``patch_seed(seed, patch.index)``. Returns the
-    whole refined batch on every rank."""
+    from a fresh stream of ``patch_seed(seed, patch.index)``. ``refine``
+    is the function that refines the slice, with ``refine_batch``'s
+    signature (default ``refine_batch``; ``ops.graphs.RefineGraphs.refine``
+    replays it from a CUDA graph). Returns the whole refined batch on every
+    rank."""
     sl = _patch_slice(pb.capacity, patch)
     local = _map(lambda t: t[sl], pb)
     if draws is None and generator is None:
         generator = _generator(seed, patch, pb.device)
-    res = lc.refine_batch(
+    res = (refine or lc.refine_batch)(
         scene_block, cfg, local, neighbor_radius, is_seed, rounds,
         final_filter, generator=None if draws is not None else generator,
         draws=None if draws is None else [_slice_draws(d, sl) for d in draws],

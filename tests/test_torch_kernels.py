@@ -15,8 +15,11 @@ exactly, samples to 1e-5; the view fitness's kernels (view_moments,
 view_deviation): counts and reference planes equal, camera sums and
 deviations to 1e-5 (relative above 1), on camera blocks of 1, 5 and 12;
 M to 1e-4 relative (the kernels sum the particles in the plain version's
-order).
+order); the refine replayed from its CUDA graph bit-equal to the eager
+refine on the same draws.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from pais_mvs_tpu_torch.models import patch as tpm
 from pais_mvs_tpu_torch.models.camera import build_scene
 from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import fitness as TF
+from pais_mvs_tpu_torch.ops.graphs import RefineGraphs
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
 from pais_mvs_tpu_torch.ops import view_fitness as VF
 from pais_mvs_tpu_torch.tools import microbench_kernel as MB
@@ -329,3 +333,68 @@ def test_kernel_rejects_what_it_does_not_take(problem):
         CF.score_windows(scene.pyramids, cfg, Hb, pt[:2, None].expand(2, 3, 2),
                          ref[:2], pb.cam_mask[:2], lod[:2],
                          torch.ones((2, 3), dtype=torch.bool, device=H.device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("is_seed,rounds", [
+    pytest.param(True, 2, id="seed-2"), pytest.param(False, 1,
+                                                     id="expansion-1")])
+def test_refine_graph_replays_the_eager_bits(problem, is_seed, rounds):
+    """``RefineGraphs.refine`` against eager ``refine_batch`` at the same
+    generator seeds: the key's first call (eager, then the capture) and
+    two replays on new draws, every field and the iterations bit-equal,
+    and each call counting the launches the eager refine counts."""
+    scene, pb = problem[:2]
+    cfg = MvsConfig(**KW)
+    graphs = RefineGraphs()
+    for seed in (0, 1, 2):
+        CF.reset_launch_counts()
+        want = tlc.refine_batch(scene, cfg, pb, 0.005, is_seed, rounds,
+                                generator=torch.Generator(pb.device)
+                                .manual_seed(seed))
+        eager = dict(CF.LAUNCHES)
+        CF.reset_launch_counts()
+        got = graphs.refine(scene, cfg, pb, 0.005, is_seed, rounds,
+                            generator=torch.Generator(pb.device)
+                            .manual_seed(seed))
+        assert dict(CF.LAUNCHES) == eager
+        for f in dataclasses.fields(tpm.PatchBatch):
+            assert torch.equal(getattr(got.batch, f.name),
+                               getattr(want.batch, f.name)), (seed, f.name)
+        assert torch.equal(got.iterations, want.iterations), seed
+    assert graphs.counts == {"captured": 1, "replayed": 2, "eager": 0}
+
+
+@pytest.mark.gpu
+def test_view_refine_graph_replays_the_eager_bits(problem, tmp_path):
+    """The view path through an NCCL world of one (``refine_sharded`` at
+    dp = vp = 1): graphed against eager on the same draws, bit-equal, with
+    the psums captured in the graph."""
+    import torch.distributed as dist
+
+    from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+    from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+    from pais_mvs_tpu_torch.parallel.sharded import refine_sharded
+    scene, pb = problem[:2]
+    cfg = MvsConfig(**KW)
+    init_distributed(f"file://{tmp_path}/store", 0, 1, backend="nccl")
+    try:
+        mesh = make_mesh((1, 1))
+        block = scene.view_block(0, 1)
+        graphs = RefineGraphs()
+        for seed in (0, 1, 2):
+            args = (block, cfg, pb, 0.005, True, 1, mesh.patch, mesh.view)
+            CF.reset_launch_counts()
+            want = refine_sharded(*args, seed=seed)
+            eager = dict(CF.LAUNCHES)
+            CF.reset_launch_counts()
+            got = refine_sharded(*args, seed=seed, refine=graphs.refine)
+            assert dict(CF.LAUNCHES) == eager
+            assert eager["view_moments"] > 0 and eager["fitness"] == 0
+            for f in dataclasses.fields(tpm.PatchBatch):
+                assert torch.equal(getattr(got.batch, f.name),
+                                   getattr(want.batch, f.name)), (seed,
+                                                                  f.name)
+        assert graphs.counts == {"captured": 1, "replayed": 2, "eager": 0}
+    finally:
+        dist.destroy_process_group()
