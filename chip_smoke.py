@@ -166,6 +166,22 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      refine; eager: no capture); (g) each run's expansion wall, the
      refines' spans and the host's time inside ``_refine_all_async``.
      Phase 16's ``-r`` and every later one run graphed (the default).
+ 26. ``psoExitChunk = 10``: the capture holds the fixed loop, which
+     gives the early exit's bits; graphed against the eager refine with
+     the exit and with the fixed loop at the same seeds (the key's first
+     call and two replays; every field and the iterations equal, a
+     replay's launches the fixed loop's): (a) the flat seed round at the
+     bench workload, with ten alternating pairs; (b) the expansion chunk
+     with the normal cone narrowed to +-pi/300, where every swarm freezes
+     early: the eager exit launches fewer K1 than the fixed loop; (c) the
+     view round through an NCCL world of one; (d)
+     ``cli.main(["-r", nvm, "--distributed-expansion"])`` eager and
+     graphed in turns, twice each (``expand_step`` refines its whole
+     budget in one replayed call): every exp.mvs byte-equal to phase
+     22's, the graphed runs logging no eager refine, phase 16's gates and
+     phase 22's agreement with phase 16; each run's wall,
+     ``dist_device_s`` and its split into the refines' spans and the
+     rest.
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
@@ -1252,6 +1268,51 @@ def graphs_line(lines):
     return counts, reasons
 
 
+def alternating_pairs(label, eager, graphed, seed0=200) -> dict:
+    """Ten alternating eager/graphed pairs (CUDA events and the host
+    clock; median and IQR, eager/graphed per pair), then one profiled
+    call of each arm (device busy time and idle share). ``eager`` and
+    ``graphed`` take a seed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ms = {"eager": [], "graphed": []}
+    host = {"eager": [], "graphed": []}
+    for i in range(10):
+        arms = (("eager", eager), ("graphed", graphed))
+        for arm, fn in (arms if i % 2 == 0 else arms[::-1]):
+            d, h = event_ms(lambda: fn(seed0 + i))
+            ms[arm].append(d)
+            host[arm].append(h)
+    ratio = [e / g for e, g in zip(ms["eager"], ms["graphed"])]
+    busy = {}
+    for arm, fn in (("eager", eager), ("graphed", graphed)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(seed0 + 100)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        b, n_act = device_busy_s(prof)
+        busy[arm] = (b * 1e3, wall * 1e3, n_act)
+        del prof
+    stats = {arm: median_iqr(v) for arm, v in ms.items()}
+    res = dict(ms=ms, host_ms=host, ratio=median_iqr(ratio), busy=busy)
+    log(f"{label}, ten alternating pairs (CUDA events): eager median "
+        f"{stats['eager'][0]:.2f} ms (IQR {stats['eager'][1]:.2f}), "
+        f"graphed median {stats['graphed'][0]:.2f} ms (IQR "
+        f"{stats['graphed'][1]:.2f}); eager/graphed per pair median "
+        f"{res['ratio'][0]:.3f} (IQR {res['ratio'][1]:.3f}); host clock "
+        f"medians {median_iqr(host['eager'])[0]:.2f} / "
+        f"{median_iqr(host['graphed'])[0]:.2f} ms; all eager "
+        f"{[round(x, 2) for x in ms['eager']]}, all graphed "
+        f"{[round(x, 2) for x in ms['graphed']]}")
+    for arm, (b, wall, n_act) in busy.items():
+        log(f"{label} profiled, {arm}: device busy {b:.2f} ms over "
+            f"{n_act} device activities in {wall:.2f} ms, idle share "
+            f"{1 - b / wall:.3f}")
+    return res
+
+
 def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
     """Phase 25: ``ops/graphs.py``'s graphed refine against the eager one.
     (a) the flat seed round at the bench workload, (c) phase 15's
@@ -1270,7 +1331,6 @@ def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
     refines' launch-to-completion spans and the host's time inside
     ``_refine_all_async`` each way. Returns the numbers."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from pais_mvs_tpu_torch import cli
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import lifecycle as lc
@@ -1352,43 +1412,8 @@ def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
     for label, eager, graphed in (("flat", flat_e, flat_g),
                                   ("chunk", chunk_e, chunk_g),
                                   ("view", view_e, view_g)):
-        ms = {"eager": [], "graphed": []}
-        host = {"eager": [], "graphed": []}
-        for i in range(10):
-            arms = (("eager", eager), ("graphed", graphed))
-            for arm, fn in (arms if i % 2 == 0 else arms[::-1]):
-                d, h = event_ms(lambda: fn(200 + i))
-                ms[arm].append(d)
-                host[arm].append(h)
-        ratio = [e / g for e, g in zip(ms["eager"], ms["graphed"])]
-        busy = {}
-        for arm, fn in (("eager", eager), ("graphed", graphed)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn(300)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            b, n_act = device_busy_s(prof)
-            busy[arm] = (b * 1e3, wall * 1e3, n_act)
-            del prof
-        stats = {arm: median_iqr(v) for arm, v in ms.items()}
-        out[label] = dict(ms=ms, host_ms=host, ratio=median_iqr(ratio),
-                          busy=busy)
-        log(f"graphs (e) {label} round, ten alternating pairs (CUDA "
-            f"events): eager median {stats['eager'][0]:.2f} ms (IQR "
-            f"{stats['eager'][1]:.2f}), graphed median "
-            f"{stats['graphed'][0]:.2f} ms (IQR {stats['graphed'][1]:.2f});"
-            f" eager/graphed per pair median {out[label]['ratio'][0]:.3f} "
-            f"(IQR {out[label]['ratio'][1]:.3f}); host clock medians "
-            f"{median_iqr(host['eager'])[0]:.2f} / "
-            f"{median_iqr(host['graphed'])[0]:.2f} ms; all eager "
-            f"{[round(x, 2) for x in ms['eager']]}, all graphed "
-            f"{[round(x, 2) for x in ms['graphed']]}")
-        for arm, (b, wall, n_act) in busy.items():
-            log(f"graphs (e) {label} round profiled, {arm}: device busy "
-                f"{b:.2f} ms over {n_act} device activities in {wall:.2f} "
-                f"ms, idle share {1 - b / wall:.3f}")
+        out[label] = alternating_pairs(f"graphs (e) {label} round", eager,
+                                       graphed)
     del G, view_g, flat_g, chunk_g
     torch.distributed.destroy_process_group()
     torch.cuda.synchronize()
@@ -1452,6 +1477,196 @@ def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
                                 or not c["eager"]):
             fail(f"graphs (d): the eager -r logged {c}")
     out["r"] = runs
+    return out
+
+
+def held_exit(label, refine, graphed, G):
+    """The key's first call and two replays (seeds 100-102) against the
+    eager refine at the same seed with the exit and with the fixed loop:
+    every PatchBatch field and the iterations equal. The capture holds
+    the fixed loop, so a replay launches what the fixed loop launches,
+    and the key's first call (eager, with the exit) what the exit does.
+    ``refine(seed, exit_chunk)`` runs the eager refine, ``graphed(seed)``
+    the graphed one. Returns each seed's launch totals (exit, fixed)."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    totals = []
+    for seed in (100, 101, 102):
+        le = []
+        for exit_chunk in (10, 0):
+            CF.reset_launch_counts()
+            res = refine(seed, exit_chunk)
+            le.append(dict(CF.LAUNCHES))
+            if exit_chunk:
+                want = res
+        if differing_fields(res, want):
+            fail(f"{label} seed {seed}: the early exit differs from the "
+                 f"fixed loop in {differing_fields(res, want)}")
+        CF.reset_launch_counts()
+        replays = G.counts["replayed"]
+        got = graphed(seed)
+        torch.cuda.synchronize()
+        lg = dict(CF.LAUNCHES)
+        expect = le[1] if G.counts["replayed"] > replays else le[0]
+        diff = differing_fields(got, want)
+        if diff or lg != expect:
+            fail(f"{label} seed {seed}: the graphed refine differs from "
+                 f"the eager one in {diff}; launches graphed {lg}, eager "
+                 f"with the exit {le[0]}, fixed loop {le[1]}")
+        totals.append(tuple(le))
+    log(f"{label}: the first call (eager, then the capture) and two "
+        f"replays bit-equal to the eager refine with the exit and with the "
+        f"fixed loop at their seeds, every PatchBatch field and the "
+        f"iterations; launches per seed (exit, fixed loop = a replay's): "
+        f"{totals}")
+    return totals
+
+
+def exit_phase(scene, cfg, pb, nvm, work, d22, rsc2, n_seeds, ref16,
+               tol) -> dict:
+    """Phase 26: the refine at ``psoExitChunk = 10`` captured (the
+    capture holds the fixed loop, bit-identical to the early exit), and
+    ``expand_step``'s refine of the whole budget replayed. (a) the flat
+    seed round at the bench workload and (b) the expansion chunk in a
+    search box narrower than the convergence threshold, where every swarm
+    freezes early: held bit-equal to the exit and to the fixed loop
+    (``held_exit``), the eager exit skipping iterations in (b); (a)'s
+    ten alternating pairs; (c) the view round through an NCCL world of
+    one; (d) ``-r --distributed-expansion`` on phase 16's files eager and
+    graphed in turns, twice each: every exp.mvs byte-equal to phase 22's,
+    the logged counts (graphed: no eager refine), the wall,
+    ``dist_device_s`` and its split into the refines' spans and the
+    rest; phase 22's gates. Returns the numbers."""
+    import torch
+    from pais_mvs_tpu_torch import cli
+    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    from pais_mvs_tpu_torch.ops.graphs import RefineGraphs
+    from pais_mvs_tpu_torch.parallel.distributed import init_distributed
+    from pais_mvs_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    dev = pb.device
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    G = RefineGraphs()
+
+    #     (a) the flat seed round, P = 30, T = 60, chunks of 10
+    ca = cfg.replace(pso_exit_chunk=10)
+    T = 2 * ca.max_iteration
+    flat = lambda s, e=10: lc.refine_batch(
+        scene, ca.replace(pso_exit_chunk=e), pb, 0.005, True, 1,
+        generator=gen(s))
+    flat_g = lambda s: G.refine(scene, ca, pb, 0.005, True, 1,
+                                generator=gen(s))
+    out["a_launches"] = held_exit(
+        f"exit (a) flat seed round (B={pb.capacity}, P="
+        f"{2 * ca.particle_num}, T={T}, psoExitChunk 10: nch {T // 10})",
+        flat, flat_g, G)
+    out["a"] = alternating_pairs("exit (a) flat seed round", flat, flat_g)
+
+    #     (b) the expansion chunk (P = 15, T = 30: nch 3) with the normal
+    #     cone narrowed to +-pi/300: every swarm's box is a few hundredths
+    #     wide, so the swarms freeze within the first chunks
+    cb = ca.replace(reduce_normal_range=300.0)
+    chunk = lambda s, e=10: lc.refine_batch(
+        scene, cb.replace(pso_exit_chunk=e), pb, 0.005, False, 1,
+        generator=gen(s))
+    chunk_g = lambda s: G.refine(scene, cb, pb, 0.005, False, 1,
+                                 generator=gen(s))
+    out["b_launches"] = held_exit(
+        f"exit (b) expansion chunk, normal cone +-pi/300 (B="
+        f"{pb.capacity}, P={cb.particle_num}, T={cb.max_iteration}, nch "
+        f"{cb.max_iteration // 10})", chunk, chunk_g, G)
+    if not all(le["fitness"] < lf["fitness"]
+               for le, lf in out["b_launches"]):
+        fail(f"exit (b): K1 launches (exit, fixed loop) "
+             f"{out['b_launches']}: the early exit skipped no chunk")
+    out["b_ms"] = [event_ms(lambda: fn(400)) for fn in (chunk, chunk_g)]
+    log(f"exit (b): one call each way (CUDA events, host clock): eager "
+        f"{out['b_ms'][0][0]:.2f} / {out['b_ms'][0][1]:.2f} ms, graphed "
+        f"(the fixed loop) {out['b_ms'][1][0]:.2f} / "
+        f"{out['b_ms'][1][1]:.2f} ms")
+
+    #     (c) the view round through an NCCL world of one
+    init_distributed(f"tcp://localhost:{free_port()}", 0, 1,
+                     backend="nccl", device="cuda")
+    mesh = make_mesh((1, 1))
+    block = scene.view_block(0, 1)
+    view_e = lambda s, e=10: lc.refine_batch(
+        block, ca.replace(pso_exit_chunk=e), pb, 0.005, True, 1,
+        draws=view_draws(s), view=mesh.view)
+    view_g = lambda s: G.refine(block, ca, pb, 0.005, True, 1,
+                                draws=view_draws(s), view=mesh.view)
+    view_draws = lambda s: lc.refine_draws(pb.capacity, ca, True, 1,
+                                           gen(s), dev)
+    out["c_launches"] = held_exit("exit (c) view round (NCCL world of "
+                                  "one, psoExitChunk 10)", view_e, view_g,
+                                  G)
+    # replays: (a) 2 + 10 pairs + 1 profiled, (b) 2 + 1 timed, (c) 2
+    if G.counts != {"captured": 3, "replayed": 18, "eager": 0}:
+        fail(f"exit (a)-(c): counts {G.counts}, expected 3 captures and 18 "
+             f"replays")
+    log(f"exit (a)-(c): captures {', '.join(f'{t:.3f}' for t in G.capture_s)}"
+        f" s (flat, chunk, view); pool {G.pool_bytes} bytes")
+    del G, flat_g, chunk_g, view_g
+    torch.distributed.destroy_process_group()
+    torch.cuda.synchronize()
+
+    #     (d) -r --distributed-expansion eager and graphed, in turns
+    with open(os.path.join(d22, "exp.mvs"), "rb") as f:
+        exp22 = f.read()
+    real = cli.Reconstructor
+    runs = []
+    for k, graphs in enumerate((False, True, True, False)):
+        d = os.path.join(work, f"exit_dist{k}")
+        os.makedirs(d)
+        cli.Reconstructor = functools.partial(real, graphs=graphs)
+        t0 = time.time()
+        try:
+            rc, _ = run_cli(["-r", nvm, "--distributed-expansion", "-o", d],
+                            work)
+        finally:
+            cli.Reconstructor = real
+        torch.cuda.synchronize()
+        r_s = time.time() - t0
+        if rc != 0:
+            fail(f"exit (d): -r --distributed-expansion with graphs="
+                 f"{graphs} exit code {rc}")
+        with open(os.path.join(d, "exp.mvs"), "rb") as f:
+            same = f.read() == exp22
+        with open(os.path.join(d, "log.txt")) as f:
+            counts, reasons = graphs_line(f.read().splitlines())
+        st, cloud, med = r_gates(f"exit (d) graphs={graphs}", d, rsc2,
+                                 n_seeds)
+        rest = st["dist_device_s"] - st["dist_refine_device_s"]
+        runs.append(dict(graphs=graphs, s=r_s, same=same, counts=counts,
+                         reasons=reasons, rest_s=rest, **{k_: st[k_] for k_ in (
+                             "dist_expansion_s", "dist_device_s",
+                             "dist_refine_device_s", "dist_rounds",
+                             "live_patches", "refine_graph_capture_s")}))
+        log(f"exit (d) -r --distributed-expansion graphs={graphs}: "
+            f"{r_s:.1f} s; exp.mvs {'byte-equal to' if same else 'DIFFERS from'}"
+            f" phase 22's; {st['live_patches']} patches, "
+            f"{st['dist_rounds']} rounds; expansion "
+            f"{st['dist_expansion_s']:.3f} s, the steps' spans "
+            f"(dist_device_s) {st['dist_device_s']:.3f} s = the refines' "
+            f"spans {st['dist_refine_device_s']:.3f} s + the rest "
+            f"{rest:.3f} s; captures {st['refine_graph_capture_s']:.3f} s; "
+            f"log: {counts}, eager reasons {reasons}; median {med:.6f}")
+    for r in runs:
+        if not r["same"]:
+            fail(f"exit (d): graphs={r['graphs']} wrote other exp.mvs bytes "
+                 f"than phase 22")
+        c = r["counts"]
+        if r["graphs"] and not (c["captured"] and c["replayed"]
+                                and c["eager"] == 0):
+            fail(f"exit (d): the graphed run logged {c} (expected "
+                 f"captures, replays, no eager refine)")
+        if not r["graphs"] and (c["captured"] or c["replayed"]):
+            fail(f"exit (d): the eager run logged {c}")
+    ag, ratio = agreement_gates("exit (d) vs phase 16", cloud, ref16, tol)
+    log(f"exit (d): against phase 16's cloud agreement {ag[0]:.3f} / "
+        f"{ag[1]:.3f} at half a cell, count ratio {ratio:.3f}")
+    out["d"] = runs
     return out
 
 
@@ -2631,6 +2846,11 @@ def main():
     # 25. the refine as CUDA graphs (ops/graphs.py), graphed against eager
     #     at the same generator seeds
     graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev)
+
+    # 26. psoExitChunk 10 captured (the fixed loop), and expand_step's
+    #     refine of the whole budget replayed
+    exit_phase(scene, cfg, pb, nvm, work, d22, rsc2, n_seeds, exp.centers,
+               tol)
     shutil.rmtree(work)
 
     kernels = [

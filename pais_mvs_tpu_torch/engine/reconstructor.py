@@ -18,12 +18,13 @@ Division of labour: the device owns all pixel math (PSO/fitness/NCC/LOD);
 the host owns the ragged bookkeeping (arena, cell buckets, frontier), in
 numpy and the native runtime (``native/``).
 
-On the card every seed round and expansion chunk replays the refine from
-a CUDA graph captured once per signature (``ops/graphs.py``, the
-counterpart of the JAX package's jitted ``refine_batch``);
+On the card every seed round, expansion chunk and ``expand_step`` replays
+the refine from a CUDA graph captured once per signature
+(``ops/graphs.py``, the counterpart of the JAX package's jitted
+``refine_batch``), ``psoExitChunk > 0`` included;
 ``Reconstructor(graphs=False)`` refines eagerly, and the stated eager
-paths (the CPU, ``psoExitChunk > 0``, a gloo mesh, ``expand_step``'s
-prefix refine) are logged once and counted in ``stats["refine_graphs"]``.
+paths (the CPU, a gloo mesh) are logged once and counted in
+``stats["refine_graphs"]``.
 """
 
 from __future__ import annotations
@@ -772,7 +773,10 @@ class Reconstructor:
         ``stats["dist_device_s"]`` sums each round's ``expand_step``
         launch-to-completion span by CUDA events (the host clock on the
         CPU): it holds the device's idle gaps and the step's host syncs,
-        so it bounds the device's busy time from above."""
+        so it bounds the device's busy time from above.
+        ``stats["dist_refine_device_s"]`` is the part of it between the
+        events around each step's refine; the rest is the step's own
+        work and host syncs."""
         if mesh is None:
             mesh = self.mesh
         if mesh is not None:
@@ -816,14 +820,30 @@ class Reconstructor:
         ost = torch.as_tensor(ost_np[mine], device=dev)
         cam_cells_t = torch.as_tensor(cam_cells, device=dev)
         gen = self._patch_generator(k)
-        prefix_refine = self.graphs.eager_refine(graphs_mod.EAGER_PREFIX)
+        refine_spans: list = []      # this round's: CUDA events or seconds
+
+        def timed_refine(*args, **kw):
+            if cuda:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            else:
+                h0 = time.perf_counter()
+            res = self._refine(*args, **kw)
+            if cuda:
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record()
+                refine_spans.append((e0, e1))
+            else:
+                refine_spans.append(time.perf_counter() - h0)
+            return res
+
         on_dev = lambda x: torch.as_tensor(x, device=dev)
         cuda = dev.type == "cuda"
 
         t0 = time.time()
         total_inserted = total_spilled = total_refined = 0
         stall_rounds = rounds_run = 0
-        t_device = 0.0
+        t_device = t_refine = 0.0
         # per-parent record of candidates that already SPENT their one
         # refine in a spilled round (mvs.cpp:632-788), fed back as
         # ``cand_done``; only re-queued parents hold an entry, and the
@@ -892,14 +912,18 @@ class Reconstructor:
                     cam_cells_t, self.neighbor_radius, mesh, slab, gh_cells,
                     cap_per=cfg.max_cell_patch_num,
                     refine_budget=refine_budget, cand_done=on_dev(pdone),
-                    generator=gen, refine=prefix_refine)
+                    generator=gen, refine=timed_refine)
             if cuda:
                 ev1 = torch.cuda.Event(enable_timing=True)
                 ev1.record()
                 ev1.synchronize()
                 t_device += ev0.elapsed_time(ev1) / 1e3
+                t_refine += sum(e0.elapsed_time(e1)
+                                for e0, e1 in refine_spans) / 1e3
             else:
                 t_device += time.perf_counter() - h0
+                t_refine += sum(refine_spans)
+            refine_spans.clear()
             rounds_run += 1
             acc = accepted.cpu().numpy()
             if acc.any():
@@ -962,6 +986,7 @@ class Reconstructor:
         wall = time.time() - t0
         self.stats["dist_expansion_s"] = wall
         self.stats["dist_device_s"] = round(t_device, 3)
+        self.stats["dist_refine_device_s"] = round(t_refine, 3)
         self.stats["dist_rounds"] = rounds_run
         self.stats["dist_inserted"] = total_inserted
         self.stats["dist_spilled"] = total_spilled

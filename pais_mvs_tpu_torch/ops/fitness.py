@@ -212,11 +212,25 @@ def fitness_geometry(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray, pos):
 def score_windows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
                   pvalid, active=None):
     """Plain twin of the fused fitness kernel: score every particle's
-    warped window. Computes every row; ``active`` is accepted for the
-    kernel's signature (the kernel skips inactive swarms with BIG).
+    warped window. Scores the rows of the ``active`` swarms (all when
+    None) and gives the others BIG, as the kernel does, so that the work
+    follows the live swarms (a refine's budget is mostly invalid rows).
+    Each row's score does not depend on the others.
 
     H [B, P, C, 3, 3], pt [B, P, 2], pvalid [B, P] -> fitness [B, P] f32."""
-    del active
+    out = torch.full(pvalid.shape, BIG, dtype=torch.float32,
+                     device=pt.device)
+    rows = (torch.arange(out.shape[0], device=pt.device) if active is None
+            else torch.nonzero(active)[:, 0])
+    if rows.numel():
+        out[rows] = _score_rows(pyrs, cfg, H[rows], pt[rows], ref_cam[rows],
+                                cam_mask[rows], lod[rows], pvalid[rows])
+    return out
+
+
+def _score_rows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
+                pvalid):
+    """``score_windows`` on every row."""
     B, P, C = H.shape[:3]
     r = cfg.patch_radius
     offs = _offsets_on(r, pt.device)                          # [W2, 2]

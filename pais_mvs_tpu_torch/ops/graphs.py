@@ -25,16 +25,21 @@ the identity of the scene or camera block and of the view collective,
 
 PSO draws come from the caller's generator before the replay, round by
 round, in the order ``refine_batch(generator=)`` draws them inside
-``gln_pso`` (``refine_draws``), so the graphed and the eager refine run on
-the same numbers.
+``gln_pso`` (``lifecycle.refine_draws``), so the graphed and the eager
+refine run on the same numbers.
+
+With ``psoExitChunk > 0`` the eager PSO reads a flag from the device every
+chunk to stop once every swarm has frozen (the JAX package's
+``lax.while_loop``, pais_mvs_tpu/ops/pso.py:230-251); under a capture
+``gln_pso`` runs the fixed loop instead, which gives the same bits, so a
+replay runs every iteration.
 
 ``cuda_fitness.LAUNCHES`` counts host-side launches, which under capture
 are captures: the counters are restored around a capture and each replay
 adds the launches its graph holds (``counted_capture``,
 ``add_launches``), so they go on counting what the device ran.
 
-The eager paths are stated (``eager_reason``): CPU tensors, a PSO loop
-that reads a flag from the device (``pso_exit_chunk > 0``), a view
+The eager paths are stated (``eager_reason``): CPU tensors, a view
 collective on gloo, which stages through host memory. Anything else that
 fails in a capture or a replay raises.
 """
@@ -51,29 +56,14 @@ from pais_mvs_tpu_torch.config import MvsConfig
 from pais_mvs_tpu_torch.models.patch import PatchBatch, _map
 from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import lifecycle as lc
-from pais_mvs_tpu_torch.ops.pso import PsoDraws, draw_uniforms
+from pais_mvs_tpu_torch.ops.pso import PsoDraws
 
 # why a refine runs eagerly
 EAGER_OFF = "graphs=False (the eager arm)"
 EAGER_CPU = "CPU tensors run the kernels' plain twins"
-EAGER_EXIT_CHUNK = ("psoExitChunk > 0: the PSO loop reads a flag from the "
-                    "device every chunk, which a captured graph cannot do")
 EAGER_GLOO = ("gloo collectives stage through host memory and cannot be "
               "captured")
-EAGER_PREFIX = ("expand_step refines a kept prefix whose length changes "
-                "every round")
 EAGER_SINGLE = "-v --reoptimize refines one patch once"
-
-
-def refine_draws(B: int, cfg: MvsConfig, is_seed: bool, rounds: int,
-                 generator: Optional[torch.Generator],
-                 device) -> list:
-    """One ``PsoDraws`` per round, drawn from ``generator`` as
-    ``refine_batch(generator=)`` draws them inside ``gln_pso``: the same
-    generator state gives the same numbers."""
-    k = 2 if is_seed else 1
-    return [draw_uniforms(B, cfg.particle_num * k, 3, cfg.max_iteration * k,
-                          True, generator, device) for _ in range(rounds)]
 
 
 def graph_key(B: int, cfg: MvsConfig, is_seed: bool, rounds: int,
@@ -86,13 +76,11 @@ def graph_key(B: int, cfg: MvsConfig, is_seed: bool, rounds: int,
             id(scene), None if view is None else id(view))
 
 
-def eager_reason(device: torch.device, cfg: MvsConfig, view) -> Optional[str]:
-    """Why a refine on ``device`` with ``cfg`` and ``view`` cannot be
-    captured, or None."""
+def eager_reason(device: torch.device, view) -> Optional[str]:
+    """Why a refine on ``device`` with ``view`` cannot be captured, or
+    None."""
     if device.type != "cuda":
         return EAGER_CPU
-    if cfg.pso_exit_chunk > 0:
-        return EAGER_EXIT_CHUNK
     if view is not None and not view.capturable:
         return EAGER_GLOO
     return None
@@ -176,15 +164,15 @@ class RefineGraphs:
                draws: Optional[Sequence[PsoDraws]] = None,
                view=None) -> lc.RefineResult:
         """``refine_batch``, replayed from its key's graph."""
-        reason = eager_reason(pb.device, cfg, view)
+        reason = eager_reason(pb.device, view)
         if reason is not None or not self.enabled:
             self.eager(reason)
             return lc.refine_batch(scene, cfg, pb, neighbor_radius, is_seed,
                                    rounds, final_filter, generator=generator,
                                    draws=draws, view=view)
         if draws is None:
-            draws = refine_draws(pb.capacity, cfg, is_seed, rounds,
-                                 generator, pb.device)
+            draws = lc.refine_draws(pb.capacity, cfg, is_seed, rounds,
+                                    generator, pb.device)
         key = graph_key(pb.capacity, cfg, is_seed, rounds, final_filter,
                         scene, view)
         g = self._graphs.get(key)

@@ -32,7 +32,7 @@ from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import fitness as F
 from pais_mvs_tpu_torch.ops import geometry as geom
 from pais_mvs_tpu_torch.ops import view_fitness as VF
-from pais_mvs_tpu_torch.ops.pso import PsoDraws, gln_pso
+from pais_mvs_tpu_torch.ops.pso import PsoDraws, draw_uniforms, gln_pso
 
 
 def _project_all(rig, X, lod_scale=1.0):
@@ -275,6 +275,16 @@ def runtime_filter_static(scene, cfg: MvsConfig, pb: PatchBatch,
 # ---------------------------------------------------------------------------
 # the refine loop
 # ---------------------------------------------------------------------------
+
+def refine_draws(B: int, cfg: MvsConfig, is_seed: bool, rounds: int,
+                 generator: torch.Generator | None, device) -> list:
+    """One ``PsoDraws`` per round, drawn from ``generator`` as
+    ``refine_batch(generator=)`` draws them inside ``gln_pso``: the same
+    generator state gives the same numbers."""
+    k = 2 if is_seed else 1
+    return [draw_uniforms(B, cfg.particle_num * k, 3, cfg.max_iteration * k,
+                          True, generator, device) for _ in range(rounds)]
+
 
 class RefineResult(NamedTuple):
     batch: PatchBatch

@@ -134,8 +134,10 @@ def gln_pso(fit_fn: Callable, range_l, range_u, init,
       exit_chunk: > 0 checks every ``exit_chunk`` iterations whether EVERY
         swarm has frozen and stops the loop if so (the batch analog of the
         reference's per-swarm early stop, psosolver.cpp:286-306). Bit-
-        identical to the fixed loop: frozen swarms never change state. Each
-        check reads one flag back from the device. 0 = fixed loop.
+        identical to the fixed loop: frozen swarms never change state, and
+        ``iterations`` counts only the steps a swarm took. Each check reads
+        one flag back from the device, so under a CUDA-graph capture the
+        fixed loop runs instead. 0 = fixed loop.
 
     Returns: PsoResult.
     """
@@ -168,6 +170,8 @@ def gln_pso(fit_fn: Callable, range_l, range_u, init,
     iwv = torch.full((B,), iw, dtype=pos.dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        exit_chunk = 0
 
     for it in range(max_iteration):
         if (exit_chunk > 0 and it > 0 and it % exit_chunk == 0

@@ -208,7 +208,8 @@ def expand_step(scene, cfg: MvsConfig, centers, normals, order_rank, valid,
     refined batch, S*refine_budget rows, patch rank k's rows from
     k*refine_budget on) when given, else ``generator``, which must be
     seeded from the patch index alone. ``refine``: the refine, with
-    ``refine_batch``'s signature (default ``refine_batch``).
+    ``refine_batch``'s signature (default ``refine_batch``), called once
+    on all ``refine_budget`` rows with their draws.
 
     Returns (refined PatchBatch [S*refine_budget rows, every rank's],
     accepted [S*refine_budget] bool, this rank's new occ_cnt and
@@ -352,24 +353,28 @@ def expand_step(scene, cfg: MvsConfig, centers, normals, order_rank, valid,
         cam_mask=mask,
         valid=keep & torch.all(torch.isfinite(new_center), -1)
         & (torch.sum(mask, -1) >= cfg.min_cam_num))
-    # the kept candidates are a prefix of ``sel``: the PSO runs on the
-    # longest prefix of any patch rank (the same on every rank); the rest,
-    # none of them valid, take refine_batch's bookkeeping alone (rounds=0),
-    # which is what one round leaves on an invalid row
+    # one refine of the whole budget, as the JAX package's jitted step
+    # runs it (pais_mvs_tpu/parallel/expansion.py:365): one graph key
+    # whatever the round keeps. A row past every rank's kept prefix is
+    # invalid, and one PSO round leaves an invalid row as the bookkeeping
+    # alone does (its fitness is inf, gbest is its incumbent, iters 0), so
+    # it never reads its draws: the generator draws the longest kept
+    # prefix's rows (the same on every rank) and the rest are zeros
     view = mesh.view if vp > 1 else None
-    n_run = max(int(patch.all_gather(keep.sum().reshape(1), 0).max()), 1)
-    head = patch_mod.take(pb, ar(n_run))
+    if draws is None:
+        n_run = max(int(patch.all_gather(keep.sum().reshape(1), 0).max()), 1)
+        d = lc.refine_draws(n_run, cfg, False, 1, generator, dev)[0]
+        pad = lambda t, axis: torch.cat(
+            [t, t.new_zeros(t.shape[:axis] + (R - n_run,)
+                            + t.shape[axis + 1:])], axis)
+        d = PsoDraws(pad(d.pos, 0), pad(d.vel, 0), pad(d.steps, 2))
+    else:
+        d = PsoDraws(draws.pos[k * R:(k + 1) * R],
+                     draws.vel[k * R:(k + 1) * R],
+                     draws.steps[:, :, k * R:(k + 1) * R])
     refine = refine or lc.refine_batch
-    rb = refine(
-        scene, cfg, head, neighbor_radius, False, 1,
-        generator=None if draws is not None else generator,
-        draws=None if draws is None else [PsoDraws(
-            draws.pos[k * R:k * R + n_run], draws.vel[k * R:k * R + n_run],
-            draws.steps[:, :, k * R:k * R + n_run])], view=view).batch
-    if n_run < R:
-        tail = refine(scene, cfg, patch_mod.take(pb, ar(R)[n_run:]),
-                      neighbor_radius, False, 0, view=view).batch
-        rb = patch_mod.concat(rb, tail)
+    rb = refine(scene, cfg, pb, neighbor_radius, False, 1, draws=[d],
+                view=view).batch
     acc0 = rb.valid
 
     # ---- insert-time re-check on the REFINED patches: density across

@@ -166,6 +166,23 @@ def test_dispatcher_runs_plain_twin_on_cpu(problem):
     assert CF.LAUNCHES == before
 
 
+def test_plain_twin_scores_only_active_rows(problem):
+    """The plain twin gives an inactive swarm BIG, as the kernel does, and
+    an active one the bits it has when every swarm is scored."""
+    _, tscene, h = problem
+    _, tcfg = _cfgs()
+    t = {k: torch.as_tensor(v) for k, v in h.items()}
+    args = (tscene, tcfg, t["ref_cam"], t["cam_mask"], t["lod"], t["ray"],
+            t["pos"])
+    act = torch.arange(t["pos"].shape[0]) % 3 == 0
+    every = TF.patch_fitness(*args).numpy()
+    some = TF.patch_fitness(*args, active=act).numpy()
+    none = TF.patch_fitness(*args, active=torch.zeros_like(act)).numpy()
+    np.testing.assert_array_equal(some[act.numpy()], every[act.numpy()])
+    assert (some[~act.numpy()] >= BIG).all() and (none >= BIG).all()
+    assert (every < BIG).any()
+
+
 def _ncc_both(problem, jcfg, tcfg, center):
     jscene, tscene, h = problem
     ja = JF.warped_patch_vectors(

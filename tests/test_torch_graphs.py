@@ -2,8 +2,8 @@
 counterpart of the JAX package's jitted ``refine_batch``, on the CPU.
 
 A graph is captured and replayed only on the card (``gpu``-marked tests
-in ``tests/test_torch_kernels.py`` hold replays bit-equal to the eager
-refine there). Here: the draws the graphed entry takes before a replay
+in ``tests/test_torch_kernels.py`` and, for ``psoExitChunk > 0``, here
+hold replays bit-equal to the eager refine there). Here: the draws the graphed entry takes before a replay
 are the numbers ``refine_batch(generator=)`` draws inside the PSO (bit
 for bit, seed and expansion mode, and over the engine's chunk plan); the
 keys; the launch bookkeeping around a capture and a replay; the eager
@@ -17,23 +17,23 @@ torch does not).
 import dataclasses
 from types import SimpleNamespace
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from pais_mvs_tpu.config import MvsConfig as JCfg
-from pais_mvs_tpu.models import patch as jpm
-from pais_mvs_tpu.ops import lifecycle as jlc
 from pais_mvs_tpu_torch.config import MvsConfig
 from pais_mvs_tpu_torch.convert import patch_batch_from_numpy, scene_from_numpy
 from pais_mvs_tpu_torch.data.synthetic import make_scene
 from pais_mvs_tpu_torch.engine.reconstructor import Reconstructor
 from pais_mvs_tpu_torch.models import patch as tpm
+from pais_mvs_tpu_torch.models.camera import build_scene
 from pais_mvs_tpu_torch.ops import graphs as G
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
-from torch_parity import refine_draws as jax_refine_draws
+
+# one intra-op thread per pytest-xdist worker, as tests/torch_parity.py
+# pins it; JAX is imported inside the one test that runs it, so that the
+# card, which has no JAX, runs this file's gpu-marked tests
+torch.set_num_threads(1)
 
 KW = dict(patch_radius=5, max_lod=4, particle_num=8, max_iteration=12,
           batch_size=64, dist_weighting=5.0 / 3.0)
@@ -72,7 +72,7 @@ def test_upfront_draws_equal_generator_path(port, is_seed, rounds):
     g2 = torch.Generator().manual_seed(5)
     want = tlc.refine_batch(scene, cfg, pb, 0.005, is_seed, rounds,
                             generator=g1)
-    draws = G.refine_draws(pb.capacity, cfg, is_seed, rounds, g2, "cpu")
+    draws = tlc.refine_draws(pb.capacity, cfg, is_seed, rounds, g2, "cpu")
     assert len(draws) == rounds
     got = tlc.refine_batch(scene, cfg, pb, 0.005, is_seed, rounds,
                            draws=draws)
@@ -108,7 +108,7 @@ def test_upfront_draws_on_the_chunk_plan(port):
         chunk = tpm.take(padded, np.arange(s, s + size))
         s += size
         got = tlc.refine_batch(rec.scene, cfg, chunk, rec.neighbor_radius,
-                               True, 1, draws=G.refine_draws(
+                               True, 1, draws=tlc.refine_draws(
                                    size, cfg, True, 1, gen, "cpu"))
         assert _same(got, want) == []
     assert torch.equal(gen.get_state(), rec.generator.get_state())
@@ -167,16 +167,14 @@ def test_launch_accounting_around_capture_and_replay():
 
 
 def test_eager_reasons():
-    cfg = MvsConfig()
     cuda = torch.device("cuda")     # a device object; nothing runs on it
     nccl = SimpleNamespace(capturable=True)
     gloo = SimpleNamespace(capturable=False)
-    assert G.eager_reason(cuda, cfg, None) is None
-    assert G.eager_reason(cuda, cfg, nccl) is None
-    assert G.eager_reason(torch.device("cpu"), cfg, None) == G.EAGER_CPU
-    assert G.eager_reason(cuda, cfg.replace(pso_exit_chunk=5),
-                          None) == G.EAGER_EXIT_CHUNK
-    assert G.eager_reason(cuda, cfg, gloo) == G.EAGER_GLOO
+    assert G.eager_reason(cuda, None) is None
+    assert G.eager_reason(cuda, nccl) is None
+    assert G.eager_reason(torch.device("cpu"), None) == G.EAGER_CPU
+    # psoExitChunk > 0 is no reason: a capture runs the fixed loop
+    assert G.eager_reason(cuda, gloo) == G.EAGER_GLOO
 
 
 def test_cpu_reconstructor_never_touches_cuda_graphs(port, monkeypatch):
@@ -223,6 +221,13 @@ def test_graphed_entry_matches_jax_compiled_refine(tiny_scene, tiny_built):
     jitted ``refine_batch`` on the same atlas and seeds, the JAX draws
     injected, in the expansion mode every ``-r`` chunk runs (the seed
     mode's draws are held above; one JAX compile keeps the file fast)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pais_mvs_tpu.config import MvsConfig as JCfg
+    from pais_mvs_tpu.models import patch as jpm
+    from pais_mvs_tpu.ops import lifecycle as jlc
+    from torch_parity import refine_draws as jax_refine_draws
     is_seed, rounds = False, 1
     jcfg, tcfg = JCfg(**KW), MvsConfig(**KW)
     jpb = jax.device_get(jlc.prepare_seeds(tiny_built, jcfg, jpm.from_seeds(
@@ -251,3 +256,53 @@ def test_graphed_entry_matches_jax_compiled_refine(tiny_scene, tiny_built):
     dc = np.linalg.norm(tres.batch.center.numpy()[both]
                         - np.asarray(jres.batch.center)[both], axis=-1)
     assert np.median(dc) <= 1e-4, np.median(dc)
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The tiny scene on the card, its seeds prepared, the kernels
+    built."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: graphs are captured on the card")
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    CF.build_kernels()
+    sc = make_scene(num_cams=5, width=200, height=150, num_seeds=40)
+    cfg = MvsConfig(**KW)
+    scene = build_scene(sc.params, sc.images, cfg, device="cuda")
+    pb = tlc.prepare_seeds(scene, cfg, tpm.from_seeds(
+        sc.seed_centers, sc.seed_cam_masks, sc.seed_img_points,
+        device="cuda"))
+    return scene, pb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exit_chunk", [5, 7])
+def test_exit_chunk_graph_replays_the_eager_bits(card, exit_chunk):
+    """The seed round at ``psoExitChunk > 0``: the capture holds the fixed
+    loop, which gives the early exit's bits. The key's first call and two
+    replays at new seeds bit-equal to the eager refine with the exit and
+    to the eager fixed loop; a replay launches what the fixed loop
+    launches, the exit no more."""
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    scene, pb = card
+    cfg = MvsConfig(**KW, pso_exit_chunk=exit_chunk)
+    graphs = G.RefineGraphs()
+    gen = lambda s: torch.Generator("cuda").manual_seed(s)
+    for seed in (0, 1, 2):
+        launches = []
+        for c in (cfg, cfg.replace(pso_exit_chunk=0)):
+            CF.reset_launch_counts()
+            want = tlc.refine_batch(scene, c, pb, 0.005, True, 1,
+                                    generator=gen(seed))
+            launches.append(dict(CF.LAUNCHES))
+            if c is cfg:
+                exit_res = want
+        assert _same(exit_res, want) == [], seed
+        CF.reset_launch_counts()
+        got = graphs.refine(scene, cfg, pb, 0.005, True, 1,
+                            generator=gen(seed))
+        assert _same(got, want) == [], seed
+        # the key's first call runs eagerly, with the exit, then captures
+        assert dict(CF.LAUNCHES) == launches[0 if seed == 0 else 1], seed
+        assert all(v <= launches[1][k] for k, v in launches[0].items())
+    assert graphs.counts == {"captured": 1, "replayed": 2, "eager": 0}

@@ -354,11 +354,12 @@ def test_expand_step_view_sharded_agrees(step_setup, four_ranks):
 
 
 def test_refine_tail_rounds0_equals_rounds1(step_setup):
-    """``expand_step`` refines its longest kept prefix and gives the rest
-    of the budget, none of it valid, ``refine_batch(rounds=0)``: on every
-    row that enters invalid (flagged so, below minCamNum, or with a
-    non-finite centre, as a padded candidate's plane intersection can
-    be), that must leave every field as one round of the PSO does."""
+    """``expand_step`` gives its whole budget one round of the refine,
+    the rows past every rank's kept prefix (none of them valid) with
+    zero draws: on every row that enters invalid (flagged so, below
+    minCamNum, or with a non-finite centre, as a padded candidate's plane
+    intersection can be), that round must leave every field as the
+    bookkeeping alone (``refine_batch(rounds=0)``) does."""
     from pais_mvs_tpu_torch.models import patch as pm
     from pais_mvs_tpu_torch.ops import geometry as geom
     from pais_mvs_tpu_torch.ops import lifecycle as tlc
@@ -392,6 +393,51 @@ def test_refine_tail_rounds0_equals_rounds1(step_setup):
     assert 8 <= dead.sum() < n - 8
     assert (a["center"][live] != b["center"][live]).any()
     assert a["valid"][live].any()
+
+
+@pytest.mark.parametrize("n_valid", [
+    pytest.param(2, id="n_run<R"), pytest.param(N_PARENTS, id="n_run=R")])
+def test_whole_budget_refine_equals_prefix_and_tail(step_setup, monkeypatch,
+                                                    n_valid):
+    """``expand_step``'s one refine of all R budget rows, the draws of
+    the longest kept prefix (n_run rows, from the generator) padded with
+    zeros, against the form it replaces: the prefix refined with those
+    draws and the tail given ``refine_batch(rounds=0)``. All seven
+    outputs bit-equal, at n_run < R and at n_run = R."""
+    from pais_mvs_tpu_torch.models import patch as pm
+    from pais_mvs_tpu_torch.ops import lifecycle as tlc
+    from pais_mvs_tpu_torch.ops.pso import PsoDraws
+    sc, jcfg, jscene, tcfg, tscene = step_setup
+    inp = step_inputs(sc, 1)
+    inp["valid"][n_valid:] = False
+    drawn = []
+    real = tlc.refine_draws
+    monkeypatch.setattr(tlc, "refine_draws",
+                        lambda B, *a: drawn.append(B) or real(B, *a))
+    got = one_rank(tscene, tcfg, inp)
+    n_run, R = drawn[0], inp["R"]
+    assert drawn == [n_run] and (n_run < R) == (n_valid < N_PARENTS)
+
+    def prefix_and_tail(scene, cfg, pb, nr, is_seed, rounds, draws=None,
+                        view=None):
+        d = draws[0]
+        assert pb.capacity == R and not d.pos[n_run:].any()
+        head = tlc.refine_batch(
+            scene, cfg, pm.take(pb, np.arange(n_run)), nr, False, 1,
+            draws=[PsoDraws(d.pos[:n_run], d.vel[:n_run],
+                            d.steps[:, :, :n_run])], view=view)
+        if n_run == R:
+            return head
+        tail = tlc.refine_batch(scene, cfg, pm.take(pb, np.arange(n_run, R)),
+                                nr, False, 0, view=view)
+        return tlc.RefineResult(pm.concat(head.batch, tail.batch),
+                                torch.cat([head.iterations, tail.iterations]))
+
+    want = one_rank(tscene, tcfg, inp, refine=prefix_and_tail)
+    assert sorted(got) == sorted(want)
+    for name in got:
+        np.testing.assert_array_equal(got[name], want[name], name)
+    assert got["acc"].any()
 
 
 def test_build_occupancy_bit_equal(step_setup):

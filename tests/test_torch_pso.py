@@ -14,7 +14,8 @@ converged swarm's spread (convergence threshold 0.01):
   * iteration counts equal for >= 90% of swarms and never more than one
     apart (measured: one swarm of 30 off by one).
 With torch's own generator the convergence assertions of tests/test_pso.py
-hold, and the chunked early exit is bit-identical to the fixed loop."""
+hold, and the chunked early exit is bit-identical to the fixed loop (and
+within the same bars of JAX's ``exit_chunk`` loop)."""
 
 import jax
 import jax.numpy as jnp
@@ -65,19 +66,22 @@ def _case(name):
     raise ValueError(name)
 
 
+@pytest.mark.parametrize("exit_chunk", [0, 7])
 @pytest.mark.parametrize("name", ["bowls", "incumbent", "early_stop",
                                   "multimodal"])
-def test_injected_jax_draws_match_jax(name):
+def test_injected_jax_draws_match_jax(name, exit_chunk):
+    """Also with the early exit: JAX's ``lax.while_loop`` of chunks and
+    ``lax.cond`` remainder against the port's chunked loop."""
     jfit, tfit, lo, hi, init, seed, P, T = _case(name)
     key = jax.random.PRNGKey(seed)
     B, D = lo.shape
     a = j_pso(jfit, jnp.asarray(lo), jnp.asarray(hi),
               None if init is None else jnp.asarray(init), key,
-              particle_num=P, max_iteration=T)
+              particle_num=P, max_iteration=T, exit_chunk=exit_chunk)
     b = t_pso(tfit, torch.tensor(lo), torch.tensor(hi),
               None if init is None else torch.tensor(init),
               particle_num=P, max_iteration=T,
-              draws=jax_draws(key, B, P, D, T))
+              draws=jax_draws(key, B, P, D, T), exit_chunk=exit_chunk)
     np.testing.assert_allclose(b.gbest_fit.numpy(), np.asarray(a.gbest_fit),
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(b.gbest.numpy(), np.asarray(a.gbest),
@@ -107,23 +111,40 @@ def test_own_generator_convergence():
     assert np.median(run("multimodal").gbest_fit.numpy()) < 0.05
 
 
+@pytest.mark.parametrize("chunk", [5, 7, 25, 40])
 @pytest.mark.parametrize("scale,seed", [(2.0, 10), (1e-4, 11)])
-def test_exit_chunk_bit_identical(scale, seed):
+def test_exit_chunk_bit_identical(scale, seed, chunk):
     """The chunked early exit is BIT-identical to the fixed loop (frozen
     swarms never move), for chunks that divide, do not divide and exceed
-    max_iteration; a dead swarm (active0 False) never steps."""
-    B, D = 12, 3
+    max_iteration; a dead swarm (active0 False) never steps. The loop
+    stops at a chunk boundary, and only once every live swarm has frozen
+    (one fitness call per iteration run)."""
+    B, D, T = 12, 3, 25
     opt = torch.tensor(np.random.default_rng(4).uniform(-1, 1, (B, D)),
                        dtype=torch.float32)
-    fit = lambda pos, act: ((pos - opt[:, None, :]) ** 2).sum(-1)
+    calls = {"fit": 0}
+
+    def fit(pos, act):
+        calls["fit"] += 1
+        return ((pos - opt[:, None, :]) ** 2).sum(-1)
+
     lo = torch.full((B, D), -scale)
     hi = torch.full((B, D), scale)
     act0 = torch.tensor([True, False] * (B // 2))
-    draws = jax_draws(jax.random.PRNGKey(seed), B, 8, D, 25)
-    base = t_pso(fit, lo, hi, None, 8, 25, draws=draws, active0=act0)
-    for chunk in (5, 7, 25, 40):
-        res = t_pso(fit, lo, hi, None, 8, 25, draws=draws, active0=act0,
-                    exit_chunk=chunk)
-        for x, y in zip(base, res):
-            np.testing.assert_array_equal(x.numpy(), y.numpy())
+    draws = jax_draws(jax.random.PRNGKey(seed), B, 8, D, T)
+    base = t_pso(fit, lo, hi, None, 8, T, draws=draws, active0=act0)
+    assert calls["fit"] == 1 + T
+    calls["fit"] = 0
+    res = t_pso(fit, lo, hi, None, 8, T, draws=draws, active0=act0,
+                exit_chunk=chunk)
+    for x, y in zip(base, res):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
     assert not base.iterations.numpy()[1]
+    ran = calls["fit"] - 1
+    assert ran == T or ran % chunk == 0
+    # a swarm that took its last step at iteration m - 1 is seen frozen
+    # at the check of iteration m, so the first boundary past m may stop
+    live = int(base.iterations.max())
+    assert ran == T or ran > live
+    if scale < 1 and chunk < T:
+        assert ran < T

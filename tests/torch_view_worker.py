@@ -213,10 +213,12 @@ def refine_stub(scene, cfg, pb, neighbor_radius, is_seed, rounds,
     return lc.RefineResult(out, torch.zeros(pb.capacity, dtype=torch.int32))
 
 
-def expand_step_case(scene, cfg, inp, mesh, draws=None, stub=False):
+def expand_step_case(scene, cfg, inp, mesh, draws=None, stub=False,
+                     refine=None):
     """``parallel.expansion.expand_step`` on this rank for the whole-round
     numpy inputs ``inp`` (occupancy whole: the rank takes its slab); the
-    refine is ``refine_stub`` when ``stub``. Returns numpy: the batch
+    refine is ``refine_stub`` when ``stub``, else ``refine`` (default
+    ``refine_batch``). Returns numpy: the batch
     fields as ``b_<name>``, acc, this rank's occ and ost slabs, spilled,
     sp_par, ref_cand and the rank's (patch, view) index."""
     from pais_mvs_tpu_torch.ops import lifecycle as lc
@@ -235,7 +237,7 @@ def expand_step_case(scene, cfg, inp, mesh, draws=None, stub=False):
             _t(inp["ost"][k * slab:(k + 1) * slab]), _t(inp["cam_cells"]),
             inp["nr"], mesh, slab, inp["gh"], inp["cap"], inp["R"],
             cand_done=_t(inp["cand_done"]), draws=draws,
-            generator=torch.Generator().manual_seed(0))
+            generator=torch.Generator().manual_seed(0), refine=refine)
     finally:
         lc.refine_batch = orig
     pb, acc, occ, ost, spilled, sp_par, ref_cand = out
