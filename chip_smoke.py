@@ -53,8 +53,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      run with the same PSO draws (valid agreement >= 0.95, median centre
      difference <= 1e-4), every rank returning the same bits;
  13. M, the microbench of K1's inner loop
-     (``python -m pais_mvs_tpu_torch.tools.microbench_kernel``): both
-     variants against the plain twin (1e-4 relative), then their times;
+     (``python -m pais_mvs_tpu_torch.tools.microbench_kernel``): the four
+     variants ((a) taps from L2, (b) the box by ``cp.async``, (c) the tap
+     footprint by bulk copy as bf16 quads, (d) (c) persistent with a
+     two-stage ring) against the plain twin (1e-4 relative; each one's
+     max |err| printed), then timed in turns (five rounds of a, b, c, d,
+     d1, d1, d, c, b, a, d1 being (d) with one cell per block; median
+     and IQR of the ten times each) beside the bound
+     and ``grid_sample`` on the bf16-rounded boxes at the same 5120 x 1024
+     x 30 coordinates, summed over particles (sampling only, not the same
+     function: no bf16 hat weights, no 64-column clip); each variant's
+     registers and spills from ``-Xptxas -v``, its shared memory and its
+     tap loop's SASS instructions per (pixel, particle) step
+     (``cuobjdump -sass``);
  14. each kernel's time at the main paths' shapes (K1, A and B on the
      round's first evaluation and on its 31st), beside its plain twin's,
      its roofline bound and, for K2, A and B, ``grid_sample`` on the same
@@ -194,6 +205,9 @@ Each kernel's ``max_abs_err`` is the largest of every check of it,
 ``max_abs_err_r`` that of the checks at phase 16's shapes alone,
 ``max_abs_err_b1`` that of phase 20's checks at B = 1 and
 ``max_abs_err_dist_vp`` that of phase 24's check inside the expansion.
+M's entries (``microbench_a`` .. ``_d``, launches from phase 13's tool
+run) add ``ms_iqr``, ``registers``, ``spill_bytes``, ``smem_bytes``,
+``grid`` and ``sass_per_step``; their ``library_ms`` is sampling only.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
@@ -202,6 +216,7 @@ import functools
 import json
 import os
 import pickle
+import re
 import shutil
 import socket
 import subprocess
@@ -1670,6 +1685,55 @@ def exit_phase(scene, cfg, pb, nvm, work, d22, rsc2, n_seeds, ref16,
     return out
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel (mangled name): {"registers", "spill_stores", "spill_loads"}}
+    from ``nvcc -Xptxas -v`` output."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            usage[fn].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def microbench_library(box):
+    """The library yardstick of M, sampling only: ``grid_sample`` on the
+    bf16-rounded boxes at M's 5120 x 1024 x 30 sample points (column u + p
+    mod 17, row v: where the two hats of a (pixel, particle) centre),
+    summed over particles. Not the same function: its weights are not
+    rounded to bf16 and it has no 64-column clip. Returns the call."""
+    import torch
+    import torch.nn.functional as TNF
+    from pais_mvs_tpu_torch.tools import microbench_kernel as MB
+    nbox = box.shape[0]
+    per = MB.CELLS // nbox
+    t = torch.arange(MB.T, dtype=torch.float32, device=box.device)
+    p = torch.arange(MB.P, device=box.device)
+    x = (MB.U0 + 0.03 * t)[None, :] + p[:, None].float() \
+        + (p % 17)[:, None].float()                           # [P, T]
+    y = (MB.V0 + 0.01 * t)[None, :].expand(MB.P, MB.T)
+    g = torch.stack([x / (MB.KX - 1) * 2 - 1, y / (MB.KY - 1) * 2 - 1], -1)
+    grid = g[None, None].expand(nbox, per, MB.P, MB.T, 2).reshape(
+        nbox, per * MB.P, MB.T, 2).contiguous()
+    img = box.to(torch.bfloat16).float()[:, None]            # [n, 1, 80, 256]
+
+    def call():
+        return TNF.grid_sample(
+            img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True).view(nbox, per, MB.P, MB.T).sum(2)
+    return call
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -2063,28 +2127,62 @@ def main():
         fail("vp=5 refine disagrees with vp=1")
 
     # 13. M: the microbench tool (its launches), then each variant against
-    #     the plain twin and their times
+    #     the plain twin, and their times in turns beside grid_sample
     CF.reset_launch_counts()
     if MB.main(["--reps", "20"]) != 0:
         fail("the microbench tool failed")
     mb_launches = dict(CF.LAUNCHES)
     box = MB.make_box(0)
     mb_plain = MB.run_grid_plain(box)
-    mb = {}
+    mb_err = {}
     for v in MB.VARIANTS:
         got = MB.run_grid(box, variant=v)
         rel = MB.max_rel_err(got, mb_plain)
         if not rel <= 1e-4:
             fail(f"M({v}): relative error {rel:.3g} over 1e-4")
-        mb[v] = (float((got - mb_plain).abs().max()),
-                 *time_ms(lambda: MB.run_grid(box, variant=v), reps=50))
+        mb_err[v] = float((got - mb_plain).abs().max())
+        log(f"M({v}) against the plain twin: max |err| {mb_err[v]:.3g}, "
+            f"relative {rel:.3g}")
+    #    in turns; "d1" is (d) on a grid of one cell per block (its ring
+    #    never prefetches): against (c) it costs the ring's per-cell work,
+    #    against (d) the persistent grid's uneven last cells
+    mb_runs = {v: dict(variant=v) for v in MB.VARIANTS}
+    mb_runs["d1"] = dict(variant="d", grid=MB.CELLS)
+    mb_dev = {v: [] for v in mb_runs}
+    mb_host = {v: [] for v in mb_runs}
+    for _ in range(5):
+        for v in list(mb_runs) + list(mb_runs)[::-1]:
+            d_ms, h_ms = time_ms(lambda: MB.run_grid(box, **mb_runs[v]),
+                                 reps=50)
+            mb_dev[v].append(d_ms)
+            mb_host[v].append(h_ms)
+    mb = {v: (*median_iqr(mb_dev[v]), float(np.median(mb_host[v])))
+          for v in mb_runs}
     mb_plain_ms = wall_ms(lambda: MB.run_grid_plain(box), reps=3)
     mb_bound, mb_by = MB.bound_ms()
-    log(f"M at {MB.CELLS} cells: (a) {mb['a'][1]:.4f} ms (host "
-        f"{mb['a'][2]:.4f}), (b) {mb['b'][1]:.4f} ms (host "
-        f"{mb['b'][2]:.4f}), plain {mb_plain_ms:.3f} ms, bound "
-        f"{mb_bound:.4f} ms ({mb_by}); max |err| (a) {mb['a'][0]:.3g}, (b) "
-        f"{mb['b'][0]:.3g}; tool launches {mb_launches}")
+    mb_lib_ms, mb_lib_host = time_ms(microbench_library(box), reps=10)
+    mb_use = ptxas_usage(logs.get("microbench", ""))
+    mb_grid = MB.persistent_grid(MB.tap_footprint(), box.device.index)
+    mb_sass = MB.sass_per_step()
+    mb_regs = {}
+    for v in MB.VARIANTS:
+        use = [u for fn, u in mb_use.items() if f"microbench_{v}_kernel" in fn]
+        mb_regs[v] = use[0] if use else {}
+        log(f"M({v}) {MB.LABELS[v]}: {mb[v][0]:.4f} ms (IQR {mb[v][1]:.4f}, "
+            f"ten times in turns), host {mb[v][2]:.4f} ms; ptxas "
+            f"{mb_regs[v] or 'not reported (cached build)'}, dynamic shared "
+            f"memory {MB.smem_bytes(v)} B; tap loop {mb_sass[v][0]:.2f} SASS "
+            f"instructions per (pixel, particle) step: " + ", ".join(
+                f"{op} {n:.2f}" for op, n in sorted(
+                    mb_sass[v][1].items(), key=lambda x: -x[1])))
+    log(f"M(d) on a grid of one cell per block: {mb['d1'][0]:.4f} ms (IQR "
+        f"{mb['d1'][1]:.4f}), against (c) {mb['c'][0]:.4f} and (d) "
+        f"{mb['d'][0]:.4f} ms on {mb_grid} blocks")
+    log(f"M at {MB.CELLS} cells: plain {mb_plain_ms:.3f} ms, bound "
+        f"{mb_bound:.4f} ms ({mb_by}), grid_sample (sampling only, not the "
+        f"same function) {mb_lib_ms:.4f} ms (host {mb_lib_host:.4f}); (d)'s "
+        f"grid {mb_grid} blocks; footprint {MB.tap_footprint()}; tool "
+        f"launches {mb_launches}")
 
     # 14. kernel times at the main path's shapes
     #    K1: the first PSO evaluation of the round (particles drawn in the
@@ -2908,9 +3006,16 @@ def main():
         {"name": f"microbench_{v}", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/microbench.cu",
          "replaces": "tools/microbench_kernel.py:52",
-         "launches": mb_launches[f"microbench_{v}"], "max_abs_err": mb[v][0],
-         "ms": mb[v][1], "host_ms": mb[v][2], "plain_ms": mb_plain_ms, "bound_ms": mb_bound,
-         "bound_by": mb_by, "library_ms": None} for v in MB.VARIANTS]
+         "launches": mb_launches[f"microbench_{v}"], "max_abs_err": mb_err[v],
+         "ms": mb[v][0], "ms_iqr": mb[v][1], "host_ms": mb[v][2],
+         "plain_ms": mb_plain_ms, "bound_ms": mb_bound, "bound_by": mb_by,
+         "library_ms": mb_lib_ms, "library": "grid_sample, sampling only",
+         "registers": mb_regs[v].get("registers"),
+         "spill_bytes": (mb_regs[v].get("spill_stores", 0)
+                         + mb_regs[v].get("spill_loads", 0)
+                         if mb_regs[v] else None),
+         "smem_bytes": MB.smem_bytes(v), "sass_per_step": mb_sass[v][0],
+         "grid": mb_grid if v == "d" else MB.CELLS} for v in MB.VARIANTS]
     for line in stop_children():
         log(f"stopped a child process left running: {line}")
     log(f"total {time.time() - t_start:.1f} s")

@@ -80,6 +80,12 @@ ENTRIES = {
     # box, nbox, cells, out, stream
     "microbench_a": ("microbench", [_P, _I, _I, _P, _P]),
     "microbench_b": ("microbench", [_P, _I, _I, _P, _P]),
+    # box, nbox, cells, y_lo, y_hi, c_lo, c_hi (the tap footprint), out,
+    # stream
+    "microbench_c": ("microbench", [_P, _I, _I, _I, _I, _I, _I, _P, _P]),
+    # box, nbox, cells, y_lo, y_hi, c_lo, c_hi, grid, out, stream
+    "microbench_d": ("microbench", [_P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                    _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}

@@ -15,7 +15,7 @@ exactly, samples to 1e-5; the view fitness's kernels (view_moments,
 view_deviation): counts and reference planes equal, camera sums and
 deviations to 1e-5 (relative above 1), on camera blocks of 1, 5 and 12;
 M to 1e-4 relative (the kernels sum the particles in the plain version's
-order); the refine replayed from its CUDA graph bit-equal to the eager
+order), and its variants (c) and (d) bit-equal to (a); the refine replayed from its CUDA graph bit-equal to the eager
 refine on the same draws.
 """
 
@@ -301,6 +301,25 @@ def test_microbench_kernels_match_plain(cuda, variant):
     got = MB.run_grid(box, variant=variant)
     assert CF.LAUNCHES[f"microbench_{variant}"] == before + 1
     assert MB.max_rel_err(got, MB.run_grid_plain(box)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_microbench_footprint_variants_equal_a(cuda):
+    """(c) and (d) give (a)'s bits (same arithmetic in the same order, only
+    the taps' staging and layout differ), one launch each; (d) also on a
+    grid of 3 blocks over 50 cells, so each block walks its ring through
+    16-17 cells, and the occupancy grid is a positive multiple of the SMs."""
+    box = MB.make_box(0, cuda)
+    a = MB.run_grid(box, variant="a")
+    for v in ("c", "d"):
+        before = CF.LAUNCHES[f"microbench_{v}"]
+        assert torch.equal(MB.run_grid(box, variant=v), a)
+        assert CF.LAUNCHES[f"microbench_{v}"] == before + 1
+    assert torch.equal(MB.run_grid(box, 50, variant="d", grid=3),
+                       MB.run_grid(box, 50, variant="a"))
+    grid = MB.persistent_grid(MB.tap_footprint(), box.device.index)
+    sms = torch.cuda.get_device_properties(box.device).multi_processor_count
+    assert grid >= sms and grid % sms == 0
 
 
 @pytest.mark.gpu
