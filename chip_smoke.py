@@ -96,7 +96,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      scene and configuration, built from the files as the CLI builds
      them, and 1024 of the rig's seeds prepared (the same render with
      more seeds; its images equal the files'), at P=8 (expansion chunks)
-     and P=16 (seed rounds), phases 2-3's tolerances; and the expansion's
+     and P=16 (seed rounds), and with the rows' LOD cycled through every
+     band of the atlas, phases 2-3's tolerances; and the expansion's
      device-busy share: the same seeds and expansion once more in this
      process under ``torch.profiler`` (CUDA activity only), the union of
      the device's activity intervals over the expansion's wall time;
@@ -193,18 +194,37 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      phase 22's agreement with phase 16; each run's wall,
      ``dist_device_s`` and its split into the refines' spans and the
      rest.
+ 27. the main path at its first real image size:
+     ``pais_mvs_tpu_torch.tools.gpu_4k_run`` (the counterpart of the JAX
+     package's tools/tpu_4k_run.py) runs ``cli.main(["-r", ...])`` in this
+     process on an 8-camera 4096x3072 curved synthetic scene (400 seeds,
+     r=15, PSO 15 x 30, maxLOD 8, cellSize 16), the expansion capped at 24
+     rounds. The scene is rendered and written (PNG, NVM, config.txt) by
+     a child process (``chip_smoke.py --render-4k DIR``) started in phase
+     1, joined here with a deadline. Gates: phase 16's, >= 0.9 x 400 seeds
+     accepted, the cloud within [0.7, 1.43] x the JAX record's 69,954
+     patches, median surface distance <= 3.1e-4 (1.5x its 2.04e-4), K1
+     and K2 launched and no other kernel, no eager refine; the tool's
+     dict (each stage's seconds, autosaves, scene bytes, peak device
+     memory, graph captures and pool, the card) is printed. Then K1 and
+     K2 against their twins on the run's own scene and configuration
+     (``check_r_shapes`` on the scene's 400 seeds at P=15 and 30, and
+     with the rows' LOD cycled through every band of the atlas), phases
+     2-3's tolerances.
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
 18's first -r), ``launches_refine_poses_r`` (phase 19's -r -b),
 ``launches_reoptimize`` (phase 20's -v) and ``launches_dist_r`` (phase
-22's -r --distributed-expansion); A's and B's are phase 10's;
+22's -r --distributed-expansion), ``launches_4k`` (phase 27's -r at
+4K); A's and B's are phase 10's;
 ``launches_dist_vp`` of A, B and K2 are rank 0's inside phase 24's
 expansion.
 Each kernel's ``max_abs_err`` is the largest of every check of it,
 ``max_abs_err_r`` that of the checks at phase 16's shapes alone,
-``max_abs_err_b1`` that of phase 20's checks at B = 1 and
-``max_abs_err_dist_vp`` that of phase 24's check inside the expansion.
+``max_abs_err_b1`` that of phase 20's checks at B = 1,
+``max_abs_err_dist_vp`` that of phase 24's check inside the expansion and
+``max_abs_err_4k`` that of phase 27's checks at the 4K run's shapes.
 M's entries (``microbench_a`` .. ``_d``, launches from phase 13's tool
 run) add ``ms_iqr``, ``registers``, ``spill_bytes``, ``smem_bytes``,
 ``grid`` and ``sass_per_step``; their ``library_ms`` is sampling only.
@@ -816,60 +836,66 @@ def removal_counts(lines):
     return out
 
 
-def check_r_shapes(nvm, work, scene_files, scale, n_rows, gen):
-    """K1 and K2 against their plain twins at ``-r``'s shapes: the
-    engine's own scene and configuration, built from the CLI's files
-    (``work`` holds config.txt) as the CLI builds them, and ``n_rows`` of
-    the rig's seeds prepared (the same render as ``scene_files``, at
-    ``scale``, with more seeds; its images must equal the files'), at the expansion's P and
-    the seed rounds' 2P. Returns (the Reconstructor, K1's and K2's max
-    |err|); the Reconstructor holds the files' seeds, not yet refined, and
-    logs into ``work``/profiled."""
-    import torch
+def cli_reconstructor(nvm, work, dev):
+    """The Reconstructor the CLI builds from its files (``work`` holds
+    config.txt), holding the files' seeds, not yet refined, and logging
+    into ``work``/profiled."""
     from pais_mvs_tpu_torch import cli
-    from pais_mvs_tpu_torch.data.realistic import make_realistic_scene
-    from pais_mvs_tpu_torch.models import patch as pm
-    from pais_mvs_tpu_torch.ops import lifecycle as lc
-    dev = gen.device
     prof_dir = os.path.join(work, "profiled")
     os.makedirs(prof_dir)
     here = os.getcwd()
     os.chdir(work)
     try:
-        rec = cli._build_reconstructor(nvm, prof_dir, dev)
+        return cli._build_reconstructor(nvm, prof_dir, dev)
     finally:
         os.chdir(here)
+
+
+def check_r_shapes(rec, seeds, gen, label="-r shape"):
+    """K1 and K2 against their plain twins at ``-r``'s shapes: ``rec``'s
+    scene and configuration (the engine's own, built from the CLI's files
+    as the CLI builds them) and ``seeds`` (centres, camera masks, pixel
+    image points of a render of the same scene) prepared on that scene,
+    at the expansion's P and the seed rounds' 2P; then once more with each
+    row's LOD cycled through every band of the atlas (capped at its
+    reference camera's maxLOD). Returns K1's and K2's max |err|."""
+    import torch
+    from pais_mvs_tpu_torch.models import patch as pm
+    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    dev = gen.device
     rs, rc = rec.scene, rec.cfg
-    more = make_realistic_scene(num_seeds=n_rows, seed=0, scale=scale)
-    if not all(np.array_equal(a, b) for a, b in zip(more.images,
-                                                    scene_files.images)):
-        fail(f"the {n_rows}-seed render's images differ from the CLI's "
-             f"files")
-    pb = lc.prepare_seeds(rs, rc, pm.from_seeds(
-        more.seed_centers, more.seed_cam_masks, more.seed_img_points,
-        device=dev))
+    pb = lc.prepare_seeds(rs, rc, pm.from_seeds(*seeds, device=dev))
+    n_rows = pb.capacity
+    L = rs.pyramids.num_levels
+    every_band = lambda ref: torch.minimum(torch.arange(
+        n_rows, device=dev, dtype=torch.int32) % L, rs.rig.max_lod[ref])
     err1 = err2 = 0.0
     for P in (rc.particle_num, 2 * rc.particle_num):
         sub, ref, lod, ray, pos = selftest_inputs(rs, rc, pb, n_rows, P, P)
         err1 = max(err1, check_fitness(
-            f"-r shape (B={n_rows}, r={rc.patch_radius}) P={P} around the "
+            f"{label} (B={n_rows}, r={rc.patch_radius}) P={P} around the "
             f"prepared seeds", rs, rc, ref, sub.cam_mask, lod, ray, pos)[0])
+        err1 = max(err1, check_fitness(
+            f"{label} P={P} every band", rs, rc, ref, sub.cam_mask,
+            every_band(ref), ray, pos)[0])
         ref, lod, ray, act, pos = first_evaluation(rs, rc, pb, P, gen)
         err1 = max(err1, check_fitness(
-            f"-r shape P={P} first seed-round evaluation", rs, rc, ref,
+            f"{label} P={P} first seed-round evaluation", rs, rc, ref,
             pb.cam_mask, lod, ray, pos, act)[0])
     n = pb.normal()
     ref = lc.set_reference_camera(rs, n, pb.cam_mask)
     lod = lc.set_lod(rs, rc, pb.center, ref)
     for shift in (0.0, 0.002):
-        err2 = max(err2, check_sampler(
-            f"-r shape (B={n_rows}, r={rc.patch_radius}) shift={shift}", rs,
-            rc, pb.center + shift, n, ref, pb.cam_mask, lod)[0])
-    log(f"-r shape: atlas {tuple(rs.pyramids.images.shape)}, maxLOD "
+        for what, lv in (("", lod), (" every band", every_band(ref))):
+            err2 = max(err2, check_sampler(
+                f"{label} (B={n_rows}, r={rc.patch_radius}) shift={shift}"
+                f"{what}", rs, rc, pb.center + shift, n, ref, pb.cam_mask,
+                lv)[0])
+    log(f"{label}: atlas {tuple(rs.pyramids.images.shape)}, maxLOD "
         f"{rc.max_lod}, the prepared seeds' LOD levels "
-        f"{np.bincount(lod.cpu().numpy(), minlength=rc.max_lod + 1)}; "
-        f"K1 max |err| {err1:.3g}, K2 {err2:.3g}")
-    return rec, err1, err2
+        f"{np.bincount(lod.cpu().numpy(), minlength=L)}; K1 max |err| "
+        f"{err1:.3g}, K2 {err2:.3g}")
+    return err1, err2
 
 
 def device_busy_s(prof):
@@ -1181,11 +1207,9 @@ def vp_worker(rank, world, port, out_dir):
     torch.distributed.destroy_process_group()
 
 
-def run_children(label, argvs, timeout_s, cwd=None, env=None, logs=None):
-    """Start one child process per argv, all at once, wait for them with a
-    deadline, and kill and reap those still running when it passes. Fails
-    unless every one exited 0, quoting the end of each ``logs`` file
-    (which then takes the child's stdout and stderr)."""
+def start_children(argvs, cwd=None, env=None, logs=None) -> list:
+    """Start one child process per argv, all at once (``logs``: a file per
+    child that takes its stdout and stderr)."""
     procs = []
     for i, argv in enumerate(argvs):
         if logs is None:
@@ -1194,7 +1218,13 @@ def run_children(label, argvs, timeout_s, cwd=None, env=None, logs=None):
         with open(logs[i], "w") as out:
             procs.append(subprocess.Popen(argv, cwd=cwd, env=env, stdout=out,
                                           stderr=subprocess.STDOUT))
-    deadline = time.time() + timeout_s
+    return procs
+
+
+def join_children(label, procs, deadline, logs=None):
+    """Wait for ``procs`` until the ``time.time()`` ``deadline``, and kill
+    and reap those still running when it passes. Fails unless every one
+    exited 0, quoting the end of each ``logs`` file."""
     try:
         for p in procs:
             p.wait(max(0.0, deadline - time.time()))
@@ -1213,6 +1243,13 @@ def run_children(label, argvs, timeout_s, cwd=None, env=None, logs=None):
                 tails.append(f.read()[-1500:])
         fail(f"{label}: still running {hung}, exit codes {codes}"
              + "".join(f"\n----\n{t}" for t in tails))
+
+
+def run_children(label, argvs, timeout_s, cwd=None, env=None, logs=None):
+    """``start_children``, then ``join_children`` with a deadline
+    ``timeout_s`` from now."""
+    join_children(label, start_children(argvs, cwd, env, logs),
+                  time.time() + timeout_s, logs)
 
 
 def run_vp_workers(world, payload, timeout_s=400.0, flag="--vp-rank"):
@@ -1685,6 +1722,109 @@ def exit_phase(scene, cfg, pb, nvm, work, d22, rsc2, n_seeds, ref16,
     return out
 
 
+# phase 27: the JAX package's record of tools/tpu_4k_run.py at 400 seeds
+# and 24 rounds (BASELINE.md:376-390): 69,954 patches from 399/400 seeds
+# at median surface distance 2.04e-4; a yardstick of counts and quality,
+# never of time or memory
+JAX_4K_PATCHES, JAX_4K_MEDIAN = 69_954, 2.04e-4
+FOURK_SEEDS, FOURK_ROUNDS = 400, 24
+# the 4K render's deadline, in seconds from its start in phase 1
+RENDER_4K_S = 700
+
+
+def render_4k(out_dir):
+    """Phase 27's files (``chip_smoke.py --render-4k DIR``): gpu_4k_run's
+    8-camera 4096x3072 scene at 400 seeds written into DIR, and its ground
+    truth (the scene without its images) pickled beside them."""
+    import dataclasses
+    sys.path.insert(0, HERE)
+    from pais_mvs_tpu_torch.tools import gpu_4k_run as G4
+    t0 = time.time()
+    sc = G4.write_scene(out_dir, seeds=FOURK_SEEDS)
+    with open(os.path.join(out_dir, "truth.pkl"), "wb") as f:
+        pickle.dump(dataclasses.replace(sc, images=[]), f)
+    print(f"4K scene rendered and written in {time.time() - t0:.1f} s",
+          flush=True)
+
+
+def fourk_phase(render, gen):
+    """Phase 27: the main path at 4K. Joins the render started in phase 1
+    (``render``: its directory, processes, log and start time), runs
+    ``gpu_4k_run.run`` on its files at 400 seeds and 24 rounds with the
+    launch counts set to 0 just before, and gates the run: phase 16's
+    gates, >= 0.9 x 400 seeds accepted, the cloud within [0.7, 1.43] x the
+    JAX record's 69,954 patches, median surface distance <= 3.1e-4 (1.5x
+    its 2.04e-4), K1 and K2 launched and no other kernel, no eager refine
+    (each key's first run is its capture's). Then K1 and K2 against their
+    twins on the run's own scene and configuration (``check_r_shapes``).
+    Returns (launches, K1's max |err|, K2's)."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.tools import gpu_4k_run as G4
+    out_dir, procs, render_log, t_render = render
+    t_phase = time.time()
+    join_children("the 4K render", procs, t_render + RENDER_4K_S,
+                  [render_log])
+    with open(render_log) as f:
+        log(f"4K render ({f.read().strip()}) joined "
+            f"{time.time() - t_phase:.1f} s into phase 27")
+    with open(os.path.join(out_dir, "truth.pkl"), "rb") as f:
+        truth = pickle.load(f)
+    keep = []
+    torch.cuda.synchronize()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    CF.reset_launch_counts()
+    res = G4.run(out_dir, truth, rounds=FOURK_ROUNDS, keep=keep)
+    torch.cuda.synchronize()
+    launches = dict(CF.LAUNCHES)
+    rec = keep[0]
+    log(f"4K run: {json.dumps(res)}")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        eager_logged = "refine runs eagerly" in f.read()
+    st, c, med = r_gates("4K -r", out_dir, truth, FOURK_SEEDS)
+    a = rec.arena
+    lods = np.bincount(a.data["lod"][a.live_ids()],
+                       minlength=rec.scene.pyramids.num_levels)
+    ratio = len(c) / JAX_4K_PATCHES
+    log(f"4K -r: seeds {st['seed_accepted']}/{FOURK_SEEDS}, "
+        f"{len(c)} patches = {ratio:.3f} x the JAX record's "
+        f"{JAX_4K_PATCHES}, median {med:.6g} (JAX {JAX_4K_MEDIAN}), "
+        f"{res['expansion_rounds']} rounds; launches {launches}; the "
+        f"script's allocation before the run {base_gib:.3f} GiB; the "
+        f"cloud's LOD levels {lods}")
+    if st["seed_accepted"] < 0.9 * FOURK_SEEDS:
+        fail(f"4K -r: {st['seed_accepted']}/{FOURK_SEEDS} seeds accepted "
+             f"(gate >= 90%)")
+    if not 0.7 <= ratio <= 1.43:
+        fail(f"4K -r: {len(c)} patches, {ratio:.3f} x the JAX record "
+             f"(gate [0.7, 1.43])")
+    if not med <= 3.1e-4:
+        fail(f"4K -r: median surface distance {med:.6g} (gate <= 3.1e-4)")
+    if res["expansion_rounds"] > FOURK_ROUNDS:
+        fail(f"4K -r: {res['expansion_rounds']} rounds past the cap")
+    if any(launches[k] for k in launches
+           if k not in ("fitness", "sampler")) or \
+            not (launches["fitness"] and launches["sampler"]):
+        fail(f"4K -r launched {launches}: K1 and K2 each at least once "
+             f"and no other kernel expected")
+    if res["refine_graphs"]["eager"] or eager_logged \
+            or not res["refine_graphs"]["captured"]:
+        fail(f"4K -r: refine graphs {res['refine_graphs']}, eager refine "
+             f"logged: {eager_logged}; every refine graphed expected")
+    if len(truth.seed_centers) < 256:
+        fail(f"4K -r: {len(truth.seed_centers)} seeds, 256 rows wanted "
+             f"for the kernel checks")
+    err1, err2 = check_r_shapes(rec, (truth.seed_centers,
+                                      truth.seed_cam_masks,
+                                      truth.seed_img_points), gen,
+                                label="4K -r shape")
+    del rec, keep
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir)
+    log(f"phase 27 (4K -r): {time.time() - t_phase:.1f} s")
+    return launches, err1, err2
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel (mangled name): {"registers", "spill_stores", "spill_loads"}}
     from ``nvcc -Xptxas -v`` output."""
@@ -1774,6 +1914,13 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
+    # phase 27's files: gpu_4k_run's 4K scene, rendered on the host by a
+    # child process while the card runs phases 1-26
+    render_dir = tempfile.mkdtemp(prefix="chip_smoke_4k_")
+    render_log = os.path.join(render_dir, "render.log")
+    render = (render_dir, start_children(
+        [[sys.executable, os.path.abspath(__file__), "--render-4k",
+          render_dir]], logs=[render_log]), render_log, time.time())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -2461,7 +2608,15 @@ def main():
         fail("-r: expansion_device_s exceeds expansion_s")
 
     #     K1 and K2 against their twins at this path's shapes
-    rec, err1_r, err2_r = check_r_shapes(nvm, work, rsc2, 2, B, gen)
+    rec = cli_reconstructor(nvm, work, dev)
+    more = make_realistic_scene(num_seeds=B, seed=0, scale=2)
+    if not all(np.array_equal(a, b) for a, b in zip(more.images,
+                                                    rsc2.images)):
+        fail(f"the {B}-seed render's images differ from the CLI's files")
+    err1_r, err2_r = check_r_shapes(rec, (more.seed_centers,
+                                          more.seed_cam_masks,
+                                          more.seed_img_points), gen)
+    del more
     err1, err2 = max(err1, err1_r), max(err2, err2_r)
 
     #     the expansion's device-busy share: the same seeds and expansion
@@ -2951,6 +3106,11 @@ def main():
                tol)
     shutil.rmtree(work)
 
+    # 27. the main path at 4K: gpu_4k_run on the scene rendered since
+    #     phase 1, and K1 and K2 against their twins at its shapes
+    launches_4k, err1_4k, err2_4k = fourk_phase(render, gen)
+    err1, err2 = max(err1, err1_4k), max(err2, err2_4k)
+
     kernels = [
         {"name": "fused_fitness", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/fitness.cu",
@@ -2962,8 +3122,9 @@ def main():
          "launches_refine_poses_r": b_launches["fitness"],
          "launches_reoptimize": v_launches["fitness"],
          "launches_dist_r": d_launches["fitness"],
+         "launches_4k": launches_4k["fitness"],
          "max_abs_err": err1, "max_abs_err_r": err1_r,
-         "max_abs_err_b1": err1_v,
+         "max_abs_err_b1": err1_v, "max_abs_err_4k": err1_4k,
          "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
@@ -2978,8 +3139,10 @@ def main():
          "launches_reoptimize": v_launches["sampler"],
          "launches_dist_r": d_launches["sampler"],
          "launches_dist_vp": vp_launches["sampler"],
+         "launches_4k": launches_4k["sampler"],
          "max_abs_err": err2, "max_abs_err_r": err2_r,
          "max_abs_err_b1": err2_v, "max_abs_err_dist_vp": err2_vp,
+         "max_abs_err_4k": err2_4k,
          "ms": k2_ms, "host_ms": k2_host, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "view_moments", "route": "cuda",
@@ -3031,5 +3194,7 @@ if __name__ == "__main__":
         vp_worker(*map(int, sys.argv[2:5]), sys.argv[5])
     elif sys.argv[1:2] == ["--dist-rank"]:
         dist_worker(*map(int, sys.argv[2:5]), sys.argv[5])
+    elif sys.argv[1:2] == ["--render-4k"]:
+        render_4k(sys.argv[2])
     else:
         main()

@@ -74,8 +74,8 @@ def test_config_txt_parses_to_equal_fields_and_blob(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import in a fresh
     interpreter with jax, flax and pais_mvs_tpu blocked; the walk reaches
-    the view-sharded path, the SPMD expansion, the microbench tool, the
-    host engine's cell grids and native runtime, the file formats, feature
+    the view-sharded path, the SPMD expansion, the microbench and 4K
+    tools, the host engine's cell grids and native runtime, the file formats, feature
     seeding, bundle adjustment, the diagnostics and the CLI."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -97,7 +97,7 @@ def test_port_imports_no_jax():
         need = ["pais_mvs_tpu_torch." + m for m in (
             "ops.view_fitness", "parallel.mesh", "parallel.distributed",
             "parallel.sharded", "parallel.expansion",
-            "tools.microbench_kernel", "engine.cellgrid",
+            "tools.microbench_kernel", "tools.gpu_4k_run", "engine.cellgrid",
             "native", "io.nvm", "io.mvsbin", "io.logmanager", "cli",
             "features.seeding", "ops.bundle", "diagnostics")]
         assert all(m in sys.modules for m in need), need
