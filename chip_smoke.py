@@ -90,8 +90,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      20x the accepted seeds, median surface distance < 2.5e-3, every
      artifact written, exp.mvs read back with stats.json's live count,
      ``expansion_device_s`` (the refines' launch-to-completion spans by
-     CUDA events) <= ``expansion_s``, K1 and K2 launched and no other
-     kernel; prints refines/s and peak device memory. Then K1 and K2
+     CUDA events) <= ``expansion_s``, K1, K2 and every kernel of the
+     scene build (``csrc/pyramid.cu``: the CLI builds its scene on the
+     card) launched and no other kernel ("the path's kernels" below), the
+     cloud exactly the recorded one (153 seeds accepted, 11,308 patches,
+     median 0.001573); prints refines/s and peak device memory. Then K1 and K2
      against their plain twins at this path's shapes: the engine's own
      scene and configuration, built from the files as the CLI builds
      them, and 1024 of the rig's seeds prepared (the same render with
@@ -114,7 +117,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with an NVM written without points (feature-seeded): exp.mvs
      bit-equal across the two runs, and phase 16's ``-r`` once more,
      bit-equal to phase 16's exp.mvs; phase 16's gates (accepted > 40%,
-     the cloud >= 20x, median < 2.5e-3), K1 and K2 launched and no other;
+     the cloud >= 20x, median < 2.5e-3), the path's kernels;
  19. ``bundle_adjust`` on the rig's 300 tracks with cameras 1-4 perturbed
      (numpy seed 0: rotation N(0, 0.005), centre N(0, 0.01)) on the card
      and on the CPU: the start of the RMS history to 1e-5 relative, the
@@ -123,7 +126,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      they are printed, not gated); ms per LM iteration;
      ``bundle_adjust_sharded`` through an NCCL world of 1 bit-equal to
      ``bundle_adjust``; then ``cli.main(["-r", nvm, "-b"])``: the RMS line,
-     every artifact, phase 16's gates, K1 and K2 and no other kernel;
+     every artifact, phase 16's gates, the path's kernels;
  20. ``cli.main(["-v", "exp.mvs", "--patch-id", N, "--reoptimize",
      "--profile", DIR])`` on phase 16's output: every artifact (snapshot
      PLY, HTML viewer, the before and after PNGs) and a trace file in DIR,
@@ -136,7 +139,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      patches with ``order`` 0..N-1 (scaled to [0, 1]);
  22. ``cli.main(["-r", nvm, "--distributed-expansion"])`` in this process
      on phase 16's files: the SPMD expansion in an NCCL world of one.
-     Phase 16's gates, K1 and K2 launched and no other kernel, and the
+     Phase 16's gates, the path's kernels, and the
      cloud against phase 16's: mutual agreement at half a cell >= 0.65
      each way and the count ratio in [0.7, 1.43]
      (tests/test_engine_distributed.py::test_expand_distributed_
@@ -204,13 +207,29 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      1, joined here with a deadline. Gates: phase 16's, >= 0.9 x 400 seeds
      accepted, the cloud within [0.7, 1.43] x the JAX record's 69,954
      patches, median surface distance <= 3.1e-4 (1.5x its 2.04e-4), K1
-     and K2 launched and no other kernel, no eager refine; the tool's
-     dict (each stage's seconds, autosaves, scene bytes, peak device
-     memory, graph captures and pool, the card) is printed. Then K1 and
-     K2 against their twins on the run's own scene and configuration
+     and K2 and the scene build's kernels launched and no other kernel,
+     the cloud exactly the recorded one (399 seeds, 69,940 patches,
+     median 1.8799459905110405e-4, 377,352 refines), no eager refine;
+     the tool's dict (each stage's seconds, the scene build's split into
+     NVM load and PNG decode, undistortion, uploads, kernels by CUDA
+     events and the rest, autosaves, scene bytes, peak device memory,
+     graph captures and pool, the card) is printed. Then K1 and K2
+     against their twins on the run's own scene and configuration
      (``check_r_shapes`` on the scene's 400 seeds at P=15 and 30, and
      with the rows' LOD cycled through every band of the atlas), phases
      2-3's tolerances.
+ 28. the scene build on the card (``build_scene``: the kernels of
+     ``csrc/pyramid.cu``) against the CPU's (their plain twins) from the
+     same images: the pawn rig at 2x (phase 16's five 1280x960 images and
+     configuration) and two of phase 27's 4096x3072 cameras (its PNGs,
+     NVM and config.txt): every atlas, dims, yoff and the colour plane
+     bit-equal; each build's seconds, the card's split and its device
+     memory (the scene's, and the build's peak). Then each
+     kernel at the 4K camera's shapes (level 0; the resample's passes at
+     level 1; the two scans also on the window moments) against its twin
+     on CPU copies of the same inputs, bit-equal, with its device time,
+     the twin's host time, ``torch.cumsum`` on the card beside the scans,
+     and its bound.
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
@@ -228,6 +247,11 @@ Each kernel's ``max_abs_err`` is the largest of every check of it,
 M's entries (``microbench_a`` .. ``_d``, launches from phase 13's tool
 run) add ``ms_iqr``, ``registers``, ``spill_bytes``, ``smem_bytes``,
 ``grid`` and ``sass_per_step``; their ``library_ms`` is sampling only.
+The scene build's entries (``pyramid_*``; they replace no Pallas kernel)
+take ``launches`` from phase 16 and ``launches_4k`` from phase 27, their
+times, errors and bounds from phase 28; the scans add ``ms_moments`` (the
+window moments' pair of planes) and their ``library_ms`` is
+``torch.cumsum`` on one float64 plane.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside this script, it exits non-zero with no result.
 """
@@ -251,6 +275,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks (dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12        # outside the tensor cores
 
 # FP32 operations per (window pixel, visible camera) sample and per window
 # pixel, counted from the kernels' arithmetic: homography 3 rows (6 mul +
@@ -313,6 +338,24 @@ def fail(msg: str, code: int = 1):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def pyramid_entries() -> list:
+    """The scene build's kernels (csrc/pyramid.cu)."""
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    return [e for e, (src, _) in CF.ENTRIES.items() if src == "pyramid"]
+
+
+def path_launch_gate(label: str, launches: dict,
+                     kernels=("fitness", "sampler")):
+    """Fails unless each of ``kernels`` and every kernel of the scene build
+    (the CLI builds its scene on the card) launched at least once, and no
+    other kernel did."""
+    want = set(kernels) | set(pyramid_entries())
+    if any(launches[k] for k in launches if k not in want) or \
+            not all(launches[k] for k in want):
+        fail(f"{label} launched {launches}: {', '.join(sorted(want))} each "
+             f"at least once and no other kernel expected")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1727,6 +1770,11 @@ def exit_phase(scene, cfg, pb, nvm, work, d22, rsc2, n_seeds, ref16,
 # at median surface distance 2.04e-4; a yardstick of counts and quality,
 # never of time or memory
 JAX_4K_PATCHES, JAX_4K_MEDIAN = 69_954, 2.04e-4
+# the port's own clouds as PERF.md records them, which no change of where
+# the scene is built may move: phase 16's (seeds accepted, patches, median
+# to six decimals) and phase 27's (seeds, patches, median, refines)
+R_CLOUD = (153, 11_308, "0.001573")
+FOURK_CLOUD = (399, 69_940, 0.00018799459905110405, 377_352)
 FOURK_SEEDS, FOURK_ROUNDS = 400, 24
 # the 4K render's deadline, in seconds from its start in phase 1
 RENDER_4K_S = 700
@@ -1754,7 +1802,8 @@ def fourk_phase(render, gen):
     launch counts set to 0 just before, and gates the run: phase 16's
     gates, >= 0.9 x 400 seeds accepted, the cloud within [0.7, 1.43] x the
     JAX record's 69,954 patches, median surface distance <= 3.1e-4 (1.5x
-    its 2.04e-4), K1 and K2 launched and no other kernel, no eager refine
+    its 2.04e-4), the path's kernels (``path_launch_gate``), the cloud
+    exactly the recorded one (``FOURK_CLOUD``), no eager refine
     (each key's first run is its capture's). Then K1 and K2 against their
     twins on the run's own scene and configuration (``check_r_shapes``).
     Returns (launches, K1's max |err|, K2's)."""
@@ -1802,11 +1851,11 @@ def fourk_phase(render, gen):
         fail(f"4K -r: median surface distance {med:.6g} (gate <= 3.1e-4)")
     if res["expansion_rounds"] > FOURK_ROUNDS:
         fail(f"4K -r: {res['expansion_rounds']} rounds past the cap")
-    if any(launches[k] for k in launches
-           if k not in ("fitness", "sampler")) or \
-            not (launches["fitness"] and launches["sampler"]):
-        fail(f"4K -r launched {launches}: K1 and K2 each at least once "
-             f"and no other kernel expected")
+    path_launch_gate("4K -r", launches)
+    cloud = (st["seed_accepted"], len(c), med, res["expansion_refined"])
+    if cloud != FOURK_CLOUD:
+        fail(f"4K -r: the cloud {cloud} (seeds, patches, median, refines) "
+             f"is not the recorded {FOURK_CLOUD}")
     if res["refine_graphs"]["eager"] or eager_logged \
             or not res["refine_graphs"]["captured"]:
         fail(f"4K -r: refine graphs {res['refine_graphs']}, eager refine "
@@ -1820,9 +1869,216 @@ def fourk_phase(render, gen):
                                 label="4K -r shape")
     del rec, keep
     torch.cuda.empty_cache()
-    shutil.rmtree(out_dir)
     log(f"phase 27 (4K -r): {time.time() - t_phase:.1f} s")
     return launches, err1, err2
+
+
+# what each scene-build kernel stands in for: no Pallas kernel (the JAX
+# package builds its scene in numpy), so the numpy step's file:line
+PYRAMID_REPLACES = {
+    "pyramid_gray": "pais_mvs_tpu/ops/pyramid.py:25",
+    "pyramid_col_scan": "pais_mvs_tpu/ops/pyramid.py:44",
+    "pyramid_row_scan": "pais_mvs_tpu/ops/pyramid.py:74",
+    "pyramid_resample_rows": "pais_mvs_tpu/ops/pyramid.py:48",
+    "pyramid_resample_cols": "pais_mvs_tpu/ops/pyramid.py:74",
+    "pyramid_edge_range": "pais_mvs_tpu/ops/pyramid.py:77",
+    "pyramid_pack": "pais_mvs_tpu/ops/pyramid.py:191",
+}
+
+
+def config_from_txt(text: str):
+    """An MvsConfig from config.txt text, as the CLI reads it."""
+    from pais_mvs_tpu_torch.config import load_config_txt
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "config.txt")
+        with open(path, "w") as f:
+            f.write(text)
+        return load_config_txt(path)
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape hold the same bits (a may lie on
+    the card)."""
+    import torch
+    a = a.cpu()
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def scene_build_check(label, params, images, cfg, dev) -> dict:
+    """``build_scene`` on the card (the kernels of csrc/pyramid.cu) and on
+    the CPU (their plain twins) from the same images: every atlas, dims,
+    yoff and the colour plane must hold the same bits. Returns the two
+    builds' seconds and the card's split."""
+    import dataclasses
+    import torch
+    from pais_mvs_tpu_torch.models.camera import build_scene
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    split = {}
+    t0 = time.perf_counter()
+    card = build_scene(params, images, cfg, device=dev, split=split)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    scene_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    t0 = time.perf_counter()
+    cpu = build_scene(params, images, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for f in dataclasses.fields(cpu.pyramids):
+        if not same_bits(getattr(card.pyramids, f.name),
+                         getattr(cpu.pyramids, f.name)):
+            fail(f"scene build {label}: the card's {f.name} differs from "
+                 f"the CPU twins' build")
+    log(f"scene build {label}: {len(images)} cameras, atlas "
+        f"{tuple(card.pyramids.images.shape)}; every atlas, dims, yoff and "
+        f"rgb bit-equal to the CPU twins' build; build_scene on the card "
+        f"{card_s:.3f} s (undistort {split['undistort_s']:.4f}, uploads "
+        f"{split['upload_s']:.4f}, kernels {split['kernel_s']:.4f} s by "
+        f"CUDA events), on the CPU {cpu_s:.3f} s; device memory: the scene "
+        f"{scene_gib:.3f} GiB, the build's peak {peak_gib:.3f} GiB")
+    return dict(card_s=card_s, cpu_s=cpu_s, scene_GiB=scene_gib,
+                peak_GiB=peak_gib, **split)
+
+
+def pyramid_kernel_rows(img, cfg, dev) -> dict:
+    """Each scene-build kernel at one camera's shapes (``img``: its uint8
+    RGB), level 0 and level 1 as the build runs them: against its plain
+    twin on CPU copies of the same inputs (every output bit-equal, so the
+    max |err| is 0), its device time (``time_ms``), the twin's host time,
+    ``torch.cumsum`` on the card beside the two scans (the library's
+    running sum over the same float64 plane, without the zero row), and
+    its bound: the bytes its inputs need read once and its outputs written
+    once over the memory rate, or its float64 operations over the FP64
+    rate, whichever is larger. Returns {entry: row}."""
+    import torch
+    from pais_mvs_tpu_torch.ops import pyramid as PY
+    h, w = img.shape[:2]
+    dims = PY.level_dims(h, w, cfg.lod_ratio,
+                         PY.max_lod_for(w, h, cfg.lod_ratio, cfg.max_lod))
+    yoff, wa = PY.atlas_offsets([dims], len(dims))
+    h1, w1 = (int(v) for v in dims[1])
+    up_h = PY.host_tensor(img)
+    up = up_h.to(dev)
+    rgb = torch.zeros((h, w, 3), dtype=torch.uint8, device=dev)
+    g = PY.gray_plane(up, rgb)
+    F = PY.antiderivative(g)
+    tmp = PY.resample_rows(g, F, h1)
+    G = PY.row_antiderivative(tmp)
+    M = PY.moment_antiderivative(g)
+    I = PY.row_antiderivative(M)
+    lohi = PY.edge_range(g)
+    planes = [torch.zeros((int(yoff[-1]), wa), dtype=torch.bfloat16,
+                          device=dev) for _ in range(3)]
+    c = {k: v.cpu() for k, v in dict(g=g, F=F, tmp=tmp, G=G, M=M, I=I,
+                                     lohi=lohi).items()}
+    planes_h = [p.cpu() for p in planes]
+    rgb_h = rgb.cpu()
+    def pack(g_, lohi_, I_, planes_):
+        PY.pack_level(g_, lohi_, I_, cfg.patch_radius, 0, *planes_)
+        return planes_
+
+    D = 8
+    # entry: (card call, twin call, bytes, FP64 operations, library call)
+    steps = {
+        "pyramid_gray": (
+            lambda: (PY.gray_plane(up, rgb), rgb),
+            lambda: (PY.gray_plane(up_h, rgb_h), rgb_h),
+            h * w * (3 + D + 3), 6 * h * w, None),
+        "pyramid_col_scan": (
+            lambda: (PY.antiderivative(g),),
+            lambda: (PY.antiderivative(c["g"]),),
+            h * w * D + (h + 1) * w * D, h * w,
+            lambda: torch.cumsum(g, 0)),
+        "pyramid_col_scan_moments": (
+            lambda: (PY.moment_antiderivative(g),),
+            lambda: (PY.moment_antiderivative(c["g"]),),
+            h * w * D + 2 * (h + 1) * w * D, 3 * h * w, None),
+        "pyramid_row_scan": (
+            lambda: (PY.row_antiderivative(tmp),),
+            lambda: (PY.row_antiderivative(c["tmp"]),),
+            h1 * w * D + h1 * (w + 1) * D, h1 * w,
+            lambda: torch.cumsum(tmp, 1)),
+        "pyramid_row_scan_moments": (
+            lambda: (PY.row_antiderivative(M),),
+            lambda: (PY.row_antiderivative(c["M"]),),
+            2 * (h + 1) * w * D + 2 * (h + 1) * (w + 1) * D, 2 * (h + 1) * w,
+            None),
+        # the gathers read the rows of f and F at the h1 + 1 edges
+        "pyramid_resample_rows": (
+            lambda: (PY.resample_rows(g, F, h1),),
+            lambda: (PY.resample_rows(c["g"], c["F"], h1),),
+            2 * (h1 + 1) * w * D + h1 * w * D, 12 * h1 * w, None),
+        "pyramid_resample_cols": (
+            lambda: (PY.resample_cols(tmp, G, w1),),
+            lambda: (PY.resample_cols(c["tmp"], c["G"], w1),),
+            2 * h1 * (w1 + 1) * D + h1 * w1 * D, 14 * h1 * w1, None),
+        "pyramid_edge_range": (
+            lambda: (PY.edge_range(g),),
+            lambda: (PY.edge_range(c["g"]),),
+            h * w * D + 2 * D, 6 * h * w, None),
+        "pyramid_pack": (
+            lambda: pack(g, lohi, I, planes),
+            lambda: pack(c["g"], c["lohi"], c["I"], planes_h),
+            h * w * D + 2 * (h + 1) * (w + 1) * D + 2 * D + 3 * h * w * 2,
+            20 * h * w, None),
+    }
+    rows = {}
+    for name, (card, plain, nbytes, ops, library) in steps.items():
+        got = card()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = 0.0
+        for a, b in zip(got, want):
+            if not same_bits(a, b):
+                fail(f"{name} at {h}x{w}: the kernel's output differs from "
+                     f"its plain twin's")
+            if a.dtype != torch.uint8:
+                err = max(err, float((a.cpu().double() - b.double()).abs()
+                                     .max()))
+        ms, host_ms = time_ms(card, reps=5)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP64_OPS_PER_S * 1e3
+        rows[name] = dict(
+            ms=ms, host_ms=host_ms, plain_ms=plain_ms, max_abs_err=err,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=time_ms(library, reps=5)[0] if library else None)
+        log(f"{name} at {h}x{w} (level 1 {h1}x{w1}): bit-equal to its twin; "
+            f"{ms:.4f} ms device, {host_ms:.4f} ms host, bound "
+            f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}), "
+            f"twin {plain_ms:.1f} ms on the host"
+            + (f", torch.cumsum {rows[name]['library_ms']:.4f} ms"
+               if library else ""))
+    return rows
+
+
+def scene_phase(rsc2, render_dir, dev):
+    """Phase 28: the scene build on the card against the CPU twins: the
+    pawn rig at 2x under phase 16's configuration, and two of phase 27's
+    4096x3072 cameras from its files under its configuration; then each
+    kernel of csrc/pyramid.cu at the 4K camera's shapes
+    (``pyramid_kernel_rows``). Returns (the builds' numbers, the rows)."""
+    from PIL import Image
+    from pais_mvs_tpu_torch.config import load_config_txt
+    from pais_mvs_tpu_torch.io import nvm as nvm_io
+    t_phase = time.time()
+    out = {"pawn_2x": scene_build_check(
+        "pawn rig at 2x", rsc2.params, rsc2.images,
+        config_from_txt(REAL_CONFIG_TXT), dev)}
+    cams = nvm_io.load_nvm(os.path.join(render_dir, "scene.nvm")).cameras[:2]
+    images = [np.asarray(Image.open(os.path.join(render_dir, p.file_name))
+                         .convert("RGB")) for p in cams]
+    cfg4k = load_config_txt(os.path.join(render_dir, "config.txt"))
+    out["4k_two"] = scene_build_check("4K, two cameras", cams, images, cfg4k,
+                                      dev)
+    rows = pyramid_kernel_rows(images[0], cfg4k, dev)
+    log(f"phase 28 (scene build on the card): {time.time() - t_phase:.1f} s")
+    return out, rows
 
 
 def ptxas_usage(log: str) -> dict:
@@ -2589,11 +2845,10 @@ def main():
         f"the expansion; median surface distance {exp_med:.6f}; peak "
         f"device memory {r_mem:.3f} GiB above the script's "
         f"{base_mem / 2 ** 30:.3f}; launches {r_launches}")
-    if any(r_launches[k] for k in r_launches
-           if k not in ("fitness", "sampler")) or \
-            not (r_launches["fitness"] and r_launches["sampler"]):
-        fail(f"-r launched {r_launches}: K1 and K2 each at least once and "
-             f"no other kernel expected")
+    path_launch_gate("-r", r_launches)
+    if (n_acc, n_exp, f"{exp_med:.6f}") != R_CLOUD:
+        fail(f"-r: {n_acc} seeds, {n_exp} patches, median {exp_med!r}: "
+             f"the recorded cloud is {R_CLOUD}")
     if not n_acc > 0.4 * n_seeds:
         fail(f"-r: {n_acc}/{n_seeds} seeds accepted (gate > 40%)")
     if not n_exp >= 20 * n_acc:
@@ -2762,11 +3017,7 @@ def main():
     if missing or n_fs != n_feat:
         fail(f"-r nopts.nvm: artifacts missing {missing}, {n_fs} seeds "
              f"(generate_seed_patches: {n_feat})")
-    if any(fr_launches[k] for k in fr_launches
-           if k not in ("fitness", "sampler")) or \
-            not (fr_launches["fitness"] and fr_launches["sampler"]):
-        fail(f"-r nopts.nvm launched {fr_launches}: K1 and K2 expected, "
-             f"no other kernel")
+    path_launch_gate("-r nopts.nvm", fr_launches)
     if not (f_acc > 0.4 * n_fs and f_n >= 20 * f_acc and f_med < 2.5e-3
             and fst["live_patches"] == f_n):
         fail(f"-r nopts.nvm: {f_acc}/{n_fs} accepted, {f_n} patches, "
@@ -2847,10 +3098,7 @@ def main():
     if rc != 0 or missing or len(rms_line) != 1:
         fail(f"-r -b: exit code {rc}, artifacts missing {missing}, RMS "
              f"lines {rms_line}")
-    if any(b_launches[k] for k in b_launches
-           if k not in ("fitness", "sampler")) or \
-            not (b_launches["fitness"] and b_launches["sampler"]):
-        fail(f"-r -b launched {b_launches}: K1 and K2 expected, no other")
+    path_launch_gate("-r -b", b_launches)
     if not (b_acc > 0.4 * n_seeds and b_n >= 20 * b_acc and b_med < 2.5e-3
             and bst["live_patches"] == b_n):
         fail(f"-r -b: {b_acc}/{n_seeds} accepted, {b_n} patches, median "
@@ -2882,10 +3130,7 @@ def main():
             not os.path.exists(os.path.join(pdir, "trace.json")):
         fail(f"-v: exit code {rc}, artifacts missing {missing}, "
              f"re-optimized lines {reopt}, trace in {os.listdir(pdir)}")
-    if any(v_launches[k] for k in v_launches
-           if k not in ("fitness", "sampler")) or \
-            not (v_launches["fitness"] and v_launches["sampler"]):
-        fail(f"-v --reoptimize launched {v_launches}: K1 and K2 expected")
+    path_launch_gate("-v --reoptimize", v_launches)
     log(f"-v --patch-id {pid} --reoptimize --profile (CLI): {v_s:.1f} s; "
         f"{reopt[0]}; trace "
         f"{os.path.getsize(os.path.join(pdir, 'trace.json'))} bytes; "
@@ -2977,11 +3222,7 @@ def main():
         fail("-r --distributed-expansion left its world of one initialised")
     st22, c22, med22 = r_gates("-r --distributed-expansion", d22, rsc2,
                                n_seeds)
-    if any(d_launches[k] for k in d_launches
-           if k not in ("fitness", "sampler")) or \
-            not (d_launches["fitness"] and d_launches["sampler"]):
-        fail(f"-r --distributed-expansion launched {d_launches}: K1 and K2 "
-             f"each at least once and no other kernel expected")
+    path_launch_gate("-r --distributed-expansion", d_launches)
     ag22, ratio22 = agreement_gates("-r --distributed-expansion vs phase 16",
                                     c22, exp.centers, tol)
     if not 0 < st22["dist_device_s"] <= st22["dist_expansion_s"]:
@@ -3111,6 +3352,12 @@ def main():
     launches_4k, err1_4k, err2_4k = fourk_phase(render, gen)
     err1, err2 = max(err1, err1_4k), max(err2, err2_4k)
 
+    # 28. the scene build on the card against the CPU twins (the pawn rig
+    #     at 2x, two of phase 27's 4K cameras), and each of its kernels at
+    #     the 4K camera's shapes
+    builds, pyr_rows = scene_phase(rsc2, render[0], dev)
+    shutil.rmtree(render[0])
+
     kernels = [
         {"name": "fused_fitness", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/fitness.cu",
@@ -3179,6 +3426,24 @@ def main():
                          if mb_regs[v] else None),
          "smem_bytes": MB.smem_bytes(v), "sass_per_step": mb_sass[v][0],
          "grid": mb_grid if v == "d" else MB.CELLS} for v in MB.VARIANTS]
+    for name in pyramid_entries():
+        row = pyr_rows[name]
+        extra = pyr_rows.get(f"{name}_moments")
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "pais_mvs_tpu_torch/csrc/pyramid.cu",
+             "replaces": "no Pallas kernel: the numpy step at "
+                         f"{PYRAMID_REPLACES[name]}",
+             "launches": r_launches[name], "launches_4k": launches_4k[name],
+             "max_abs_err": max(row["max_abs_err"], extra["max_abs_err"])
+             if extra else row["max_abs_err"],
+             **{k: row[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+             **({"ms_moments": extra["ms"],
+                 "bound_ms_moments": extra["bound_ms"],
+                 "plain_ms_moments": extra["plain_ms"]} if extra else {}),
+             "shape": "4096x3072 camera, level 0 (resample: level 1)"})
+    log(f"scene builds: {json.dumps(builds)}")
     for line in stop_children():
         log(f"stopped a child process left running: {line}")
     log(f"total {time.time() - t_start:.1f} s")

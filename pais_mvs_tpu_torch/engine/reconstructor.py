@@ -83,9 +83,11 @@ class Reconstructor:
         self.use_native = True if use_native is None else bool(use_native)
         if self.use_native:
             native_rt.lib()
-        _t0 = time.time()
-        self.scene: Scene = build_scene(params, images, cfg, self.device)
-        _scene_s = time.time() - _t0
+        _t0 = time.perf_counter()
+        split: Dict[str, float] = {}
+        self.scene: Scene = build_scene(params, images, cfg, self.device,
+                                        split=split)
+        _scene_s = time.perf_counter() - _t0
         self.widths = [img.shape[1] for img in images]
         self.heights = [img.shape[0] for img in images]
         self.arena = PatchArena(self.scene.num_cameras)
@@ -118,8 +120,13 @@ class Reconstructor:
                                          and mesh.view.capturable)
         self._refine = (self.graphs.eager_refine(graphs_mod.EAGER_GLOO)
                         if gloo else self.graphs.refine)
+        # the scene build's split: host undistortion, uploads, the pyramid
+        # kernels (CUDA events; the twins' host time on the CPU) and the
+        # rest (the rig, allocations, launches' host side)
         self.stats: Dict[str, object] = {
             "scene_build_s": round(_scene_s, 2),
+            **{f"scene_{k}": v for k, v in split.items()},
+            "scene_other_s": _scene_s - sum(split.values()),
             "refine_graphs": self.graphs.counts, "refine_host_s": 0.0}
         self._seed_pb: Optional[PatchBatch] = None
         # PSO stream of the multi-rank paths, made on first use

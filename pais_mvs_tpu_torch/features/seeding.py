@@ -84,9 +84,9 @@ def detect_and_describe(img: np.ndarray, device, k_per_octave: int = 192,
                         num_octaves: int = 4):
     """Keypoints and their [K, 128] descriptors of one uint8 image, on
     ``device``: the per-camera device stage of the seeding."""
-    gray = pyr.rgb_to_gray(img).astype(np.float32)
+    gray = pyr.rgb_to_gray(pyr.host_tensor(img)).float()
     kp, gaussians = det.detect_keypoints(
-        torch.as_tensor(gray, device=device), num_octaves=num_octaves,
+        gray.to(device), num_octaves=num_octaves,
         k_per_octave=k_per_octave)
     # detect_keypoints appends one full, fixed-size masked block of
     # k_per_octave rows per octave, in octave order: describe each block

@@ -4,14 +4,17 @@ The PyTorch counterpart of ``pais_mvs_tpu/models/camera.py``. The reference
 keeps a ``vector<Camera>`` of heavyweight objects, each owning its own
 OpenCV matrices and pyramid (TMVS/mvs/camera.h). Here, as in the JAX
 package, there is one stacked tensor per quantity so every batched op
-indexes cameras with plain gathers. Host-side construction is float64
-numpy; every float array is cast to float32 explicitly (``torch.as_tensor``
-would keep numpy's float64, where JAX with x64 off silently casts).
+indexes cameras with plain gathers. The rig is built on the host in
+float64 numpy and every float array cast to float32 explicitly
+(``torch.as_tensor`` would keep numpy's float64, where JAX with x64 off
+silently casts); the image pyramids are built on the scene's device
+(``ops/pyramid.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -195,22 +198,36 @@ def undistort_points(pts: np.ndarray, focal, principal,
 def build_scene(params: Sequence[CameraParams],
                 rgb_images: Sequence[np.ndarray],
                 cfg: MvsConfig, device="cuda",
-                view_block: Optional[Tuple[int, int]] = None) -> Scene:
+                view_block: Optional[Tuple[int, int]] = None,
+                split: Optional[dict] = None) -> Scene:
     """Assemble the device-side Scene from parsed cameras + decoded images.
 
     ``rgb_images[i]`` is a uint8 [H, W, 3] (or gray [H, W]) array for camera
     ``i``. Per-camera derived quantities follow TMVS/mvs/camera.cpp:45-136.
-    With ``cfg.apply_distortion`` images are undistorted here and the
-    engine runs pure pinhole everywhere (as ``pais_mvs_tpu`` does).
+    With ``cfg.apply_distortion`` images are undistorted here, on the host
+    (a camera with |r| <= 1e-12 keeps its image untouched), and the engine
+    runs pure pinhole everywhere (as ``pais_mvs_tpu`` does).
+
+    The host keeps what needs no pixels: each level's size, the atlas
+    layout and the camera matrices. Each camera's image is uploaded, one
+    at a time, into one reused buffer on ``device``, and ``ops/pyramid.py``
+    builds its atlas planes there (``build_camera``: the kernels of
+    ``csrc/pyramid.cu`` on the card, their plain twins on the CPU). The
+    atlases are the JAX package's numpy build, bit for bit.
 
     ``view_block=(index, size)`` builds ``Scene.view_block(index, size)``:
-    the atlases are cut on the host, so only the block reaches the device.
+    only the block's cameras are built; the layout (``yoff``, the atlas
+    width) still comes from every camera. ``split``, when given, gets the
+    seconds of the undistortion (``undistort_s``), the uploads
+    (``upload_s``, host clock) and the pyramid steps (``kernel_s``: CUDA
+    events on the card, the host clock on the CPU).
     """
     dev = resolve_device(device)
     C = len(params)
     if C != len(rgb_images):
         raise ValueError(f"{C} cameras but {len(rgb_images)} images")
     blk = slice(None) if view_block is None else _block_slice(C, *view_block)
+    t0 = time.perf_counter()
     if cfg.apply_distortion:
         rgb_images = [
             undistort_image(img, p.focal,
@@ -221,30 +238,19 @@ def build_scene(params: Sequence[CameraParams],
                             float(p.radial_distortion))
             if abs(float(p.radial_distortion)) > 1e-12 else img
             for p, img in zip(params, rgb_images)]
+    t_undistort = time.perf_counter() - t0
     R = np.zeros((C, 3, 3)); T = np.zeros((C, 3)); centers = np.zeros((C, 3))
     focal = np.zeros((C, 2)); principal = np.zeros((C, 2))
     dist = np.zeros(C); KR = np.zeros((C, 3, 3)); KT = np.zeros((C, 3))
     optical = np.zeros((C, 3)); quat = np.zeros((C, 4))
     max_lods = np.zeros(C, dtype=np.int32)
-
-    levels_all, edges_all, dims_all, vars_all = [], [], [], []
-    hmax = max(img.shape[0] for img in rgb_images)
-    wmax = max(img.shape[1] for img in rgb_images)
-    rgb_packed = np.zeros((C, hmax, wmax, 3), dtype=np.uint8)
+    dims_all = []
 
     for i, (p, img) in enumerate(zip(params, rgb_images)):
         h, w = img.shape[:2]
-        gray = pyr.rgb_to_gray(img)
         ml = pyr.max_lod_for(w, h, cfg.lod_ratio, cfg.max_lod)
         max_lods[i] = ml
-        lv, ed, dm = pyr.build_pyramid(gray, cfg.lod_ratio, ml)
-        levels_all.append(lv); edges_all.append(ed); dims_all.append(dm)
-        vars_all.append([pyr.window_variance_map(g, cfg.patch_radius)
-                         for g in lv])
-        if img.ndim == 3:
-            rgb_packed[i, :h, :w] = img
-        else:
-            rgb_packed[i, :h, :w] = img[..., None]
+        dims_all.append(pyr.level_dims(h, w, cfg.lod_ratio, ml))
 
         Ri = _np_quat_to_rotation(np.asarray(p.quaternion, dtype=np.float64))
         ci = np.asarray(p.center, dtype=np.float64)
@@ -262,17 +268,53 @@ def build_scene(params: Sequence[CameraParams],
         quat[i] = np.asarray(p.quaternion, dtype=np.float64)
 
     L = int(max_lods.max()) + 1
-    images, edges, dims, yoff = pyr.pack_pyramids(levels_all, edges_all,
-                                                  dims_all, L)
-    var_maps = pyr.pack_variance_maps(vars_all, dims_all, L)
+    yoff, wa = pyr.atlas_offsets(dims_all, L)
+    dims = np.zeros((C, L, 2), dtype=np.int32)
+    for i, d in enumerate(dims_all):
+        dims[i, :len(d)] = d
+    hmax = max(img.shape[0] for img in rgb_images)
+    wmax = max(img.shape[1] for img in rgb_images)
+    cams = range(C)[blk]
+    # bf16 atlases, as pais_mvs_tpu/models/camera.py:236-245 keeps them:
+    # 0..255 level-0 intensities are bf16-exact (background test
+    # preserved); padding 0, -1 (window out of bounds) for the variance
+    shape = (len(cams), int(yoff[-1]), wa)
+    images = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    edges = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    var = torch.full(shape, -1.0, dtype=torch.bfloat16, device=dev)
+    rgb = torch.zeros((len(cams), hmax, wmax, 3), dtype=torch.uint8,
+                      device=dev)
+    on_card = dev.type == "cuda"
+    staging = torch.empty(max(rgb_images[i].size for i in cams),
+                          dtype=torch.uint8, device=dev)
+    t_upload, t_kernel, spans = 0.0, 0.0, []
+    for j, i in enumerate(cams):
+        img = pyr.host_tensor(rgb_images[i])
+        if on_card:
+            torch.cuda.synchronize(dev)    # the upload alone on the clock
+        t0 = time.perf_counter()
+        up = staging[:img.numel()].view(img.shape)
+        up.copy_(img)
+        t_upload += time.perf_counter() - t0
+        if on_card:
+            spans.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            spans[-1][0].record()
+        t0 = time.perf_counter()
+        pyr.build_camera(up, dims_all[i], cfg.patch_radius, yoff, images[j],
+                         edges[j], var[j], rgb[j])
+        t_kernel += time.perf_counter() - t0
+        if on_card:
+            spans[-1][1].record()
+    if on_card:
+        torch.cuda.synchronize(dev)
+        t_kernel = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    if split is not None:
+        split.update(undistort_s=t_undistort, upload_s=t_upload,
+                     kernel_s=t_kernel)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
-
-    def bf16(a):
-        # float32 -> bf16 rounds to nearest even, as numpy's bf16 cast in
-        # the JAX package does, so the atlases compare bit for bit
-        return f32(a).to(torch.bfloat16)
 
     rig = CameraRig(
         R=f32(R), T=f32(T), center=f32(centers), focal=f32(focal),
@@ -280,12 +322,9 @@ def build_scene(params: Sequence[CameraParams],
         KT=f32(KT), optical=f32(optical), quaternion=f32(quat),
         max_lod=torch.as_tensor(max_lods, dtype=torch.int32, device=dev),
     )
-    # bf16 atlases, as pais_mvs_tpu/models/camera.py:236-245 keeps them:
-    # 0..255 level-0 intensities are bf16-exact (background test preserved)
     pyrs = PyramidSet(
-        images=bf16(images[blk]), edges=bf16(edges[blk]),
+        images=images, edges=edges,
         dims=torch.as_tensor(dims, dtype=torch.int32, device=dev),
-        rgb=torch.as_tensor(rgb_packed[blk], device=dev),
-        var=bf16(var_maps[blk]),
+        rgb=rgb, var=var,
         yoff=torch.as_tensor(yoff, dtype=torch.int32, device=dev))
     return Scene(rig=rig, pyramids=pyrs)

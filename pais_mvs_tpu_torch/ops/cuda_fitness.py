@@ -26,7 +26,8 @@ shared library with a plain C interface (no PyTorch headers, so each build
 takes seconds), in parallel, at first use, into ``pais_mvs_tpu_torch/
 _build/`` (keyed by a hash of the source and flags); ``ctypes`` binds each
 C entry (``ENTRIES``; ``microbench.cu`` serves
-``pais_mvs_tpu_torch/tools/microbench_kernel.py``). Every launch adds one
+``pais_mvs_tpu_torch/tools/microbench_kernel.py``, ``pyramid.cu`` the scene
+build's wrappers in ``ops/pyramid.py``). Every launch adds one
 to ``LAUNCHES[entry]``; nothing else touches the counts.
 """
 
@@ -51,7 +52,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 SOURCES = {"fitness": "fitness.cu", "sampler": "sampler.cu",
-           "view_fitness": "view_fitness.cu", "microbench": "microbench.cu"}
+           "view_fitness": "view_fitness.cu", "microbench": "microbench.cu",
+           "pyramid": "pyramid.cu"}
 # the dynamic shared memory one block may take on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
 
@@ -86,6 +88,22 @@ ENTRIES = {
     # box, nbox, cells, y_lo, y_hi, c_lo, c_hi, grid, out, stream
     "microbench_d": ("microbench", [_P, _I, _I, _I, _I, _I, _I, _I, _P,
                                     _P]),
+    # the scene build (csrc/pyramid.cu, wrapped in ops/pyramid.py)
+    # img, h, w, channels, rgb_out, rgb_out width, gray, stream
+    "pyramid_gray": ("pyramid", [_P, _I, _I, _I, _P, _I, _P, _P]),
+    # in, n, w, out, out_sq (or null), stream
+    "pyramid_col_scan": ("pyramid", [_P, _I, _I, _P, _P, _P]),
+    # in, rows, n, out, stream
+    "pyramid_row_scan": ("pyramid", [_P, _I, _I, _P, _P]),
+    # f, F, n_in, w, n_out, out, stream
+    "pyramid_resample_rows": ("pyramid", [_P, _P, _I, _I, _I, _P, _P]),
+    # tmp, G, h, n_in, n_out, out, stream
+    "pyramid_resample_cols": ("pyramid", [_P, _P, _I, _I, _I, _P, _P]),
+    # g, h, w, lohi, stream
+    "pyramid_edge_range": ("pyramid", [_P, _I, _I, _P, _P]),
+    # g, h, w, lohi, I, radius, y0, images, edges, var, Wa, stream
+    "pyramid_pack": ("pyramid", [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
+                                 _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}

@@ -6,9 +6,11 @@ refinement, wavefront expansion, writers) on an 8-camera 4096x3072 curved
 synthetic scene (amplitude 0.06, 400 seeds; r=15, PSO 15 x 30, maxLOD 8,
 cellSize 16), the expansion capped at 24 rounds to bound the wall clock,
 and prints one JSON line: the cloud's size and surface distance, each
-stage's seconds, the refines' rate, the autosaves, the scene's device bytes
-and the peak device memory, the refine graphs, and the card's name and
-power limit.
+stage's seconds (the scene build split into NVM load and PNG decode,
+undistortion, uploads, the pyramid kernels and the rest), the refines'
+rate, the autosaves, the scene's device bytes and the peak device memory
+(the run's, and through the scene build), the refine graphs, and the
+card's name and power limit.
 
     python -m pais_mvs_tpu_torch.tools.gpu_4k_run [--rounds N] [--seeds N]
         [--out DIR] [--pipeline 0|1]
@@ -31,6 +33,9 @@ import time
 import numpy as np
 
 WIDTH, HEIGHT, NUM_CAMS = 4096, 3072, 8
+# build_scene's split in stats.json (seconds)
+SPLIT = ("scene_undistort_s", "scene_upload_s", "scene_kernel_s",
+         "scene_other_s")
 
 
 def config_txt(pipeline: int = 0) -> str:
@@ -100,7 +105,7 @@ def run(out_dir: str, scene, rounds: int = 24, device=None,
     orig_expand = Reconstructor.expand
     orig_save = Reconstructor.save_checkpoint
     orig_build = cli._build_reconstructor
-    built, saves = [], []
+    built, saves, build_peak = [], [], []
 
     def expand(self, max_rounds=10_000, autosave_path=None):
         return orig_expand(self, max_rounds=rounds,
@@ -113,6 +118,8 @@ def run(out_dir: str, scene, rounds: int = 24, device=None,
 
     def build(*args, **kw):
         built.append(orig_build(*args, **kw))
+        if on_card:    # the peak through the NVM load and the scene build
+            build_peak.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
         return built[-1]
 
     if on_card:
@@ -161,6 +168,10 @@ def run(out_dir: str, scene, rounds: int = 24, device=None,
         "wall_s": wall,
         "scene_build_s": wall - time1,
         "build_scene_s": st["scene_build_s"],
+        # the scene build's split: build_scene's own parts, and the NVM
+        # load and PNG decode (the CLI's scene build less build_scene)
+        **{k: st[k] for k in SPLIT},
+        "decode_s": wall - time1 - sum(st[k] for k in SPLIT),
         "seed_s": st["seed_refine_s"],
         "seed_accepted": st["seed_accepted"],
         "expansion_s": st["expansion_s"],
@@ -176,6 +187,7 @@ def run(out_dir: str, scene, rounds: int = 24, device=None,
         "atlas_shape": list(rec.scene.pyramids.images.shape),
         "peak_device_GiB": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if on_card else None),
+        "peak_device_scene_build_GiB": build_peak[-1] if on_card else None,
         # the process's peak resident memory so far (Linux: KiB)
         "host_peak_rss_GiB": resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,

@@ -39,7 +39,8 @@ JAX_FIELDS = ("scene", "pipeline_expansion", "rounds_cap", "patches",
               "expansion_refined", "expansion_pps")
 PORT_FIELDS = ("scene_build_s", "seed_s", "scene_device_bytes",
                "peak_device_GiB", "refine_graphs", "card", "autosaves",
-               "autosave_s", "expansion_rounds", "writers_s")
+               "autosave_s", "expansion_rounds", "writers_s", "decode_s",
+               *G.SPLIT)
 
 
 def jax_tool_scene(out_dir, pipeline=0):
@@ -148,6 +149,8 @@ def test_run_caps_rounds_and_reports(written, tmp_path, monkeypatch):
     assert out["refine_graphs"]["captured"] == 0
     assert out["scene_device_bytes"] == G.scene_bytes(keep[0].scene) > 0
     assert 0 < out["scene_build_s"] < out["wall_s"]
+    assert all(out[k] >= 0 for k in G.SPLIT)
+    assert out["scene_kernel_s"] > 0
     assert out["expansion_refined"] > 0
     # one more round than the cap on the same files grows the cloud:
     # the cap, not the frontier, ended the run

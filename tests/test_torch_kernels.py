@@ -16,7 +16,8 @@ view_deviation): counts and reference planes equal, camera sums and
 deviations to 1e-5 (relative above 1), on camera blocks of 1, 5 and 12;
 M to 1e-4 relative (the kernels sum the particles in the plain version's
 order), and its variants (c) and (d) bit-equal to (a); the refine replayed from its CUDA graph bit-equal to the eager
-refine on the same draws.
+refine on the same draws; the scene build's kernels (csrc/pyramid.cu) and
+``build_scene`` on the card bit-equal to their plain twins.
 """
 
 import dataclasses
@@ -320,6 +321,100 @@ def test_microbench_footprint_variants_equal_a(cuda):
     grid = MB.persistent_grid(MB.tap_footprint(), box.device.index)
     sms = torch.cuda.get_device_properties(box.device).multi_processor_count
     assert grid >= sms and grid % sms == 0
+
+
+def _pyramid_image(shape, seed, gray=False):
+    """A seeded uint8 image with structure and noise (RGB, or one channel)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    y, x = np.mgrid[0:h, 0:w]
+    base = 128 + 90 * np.sin(x / 7.0 + seed) * np.cos(y / 11.0)
+    img = np.clip(base[..., None] + rng.normal(0, 25, (h, w, 3)), 0, 255)
+    img = img.astype(np.uint8)
+    return np.ascontiguousarray(img[..., 0]) if gray else img
+
+
+def _same(card: torch.Tensor, cpu: torch.Tensor) -> bool:
+    a = card.cpu()
+    if a.dtype == torch.bfloat16:
+        a, cpu = a.view(torch.int16), cpu.view(torch.int16)
+    return a.dtype == cpu.dtype and torch.equal(a, cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ratio,radius,gray", [
+    ((97, 131), 0.8, 3, False), ((240, 180), 0.5, 15, False),
+    ((61, 1), 0.8, 3, True)])
+def test_pyramid_kernels_match_twins(cuda, shape, ratio, radius, gray):
+    """Each kernel of csrc/pyramid.cu gives its plain twin's bits on the
+    same inputs (the twin on CPU copies of the card's tensors), through
+    every level of one image, and launches once per call."""
+    from pais_mvs_tpu_torch.ops import pyramid as PY
+    img = torch.from_numpy(_pyramid_image(shape, 5, gray))
+    h, w = shape
+    before = dict(CF.LAUNCHES)
+    rgb_c = torch.zeros((h + 2, w + 3, 3), dtype=torch.uint8, device=cuda)
+    rgb_h = rgb_c.cpu()
+    g = PY.gray_plane(img.to(cuda), rgb_c)
+    gh = PY.gray_plane(img, rgb_h)
+    assert _same(g, gh) and _same(rgb_c, rgb_h)
+    F = PY.antiderivative(g)
+    assert _same(F, PY.antiderivative(gh))
+    dims = PY.level_dims(h, w, ratio, PY.max_lod_for(w, h, ratio, 8))
+    yoff, wa = PY.atlas_offsets([dims], len(dims))
+    planes_c = [torch.zeros((int(yoff[-1]), wa), dtype=torch.bfloat16,
+                            device=cuda) for _ in range(3)]
+    planes_c[2].fill_(-1.0)
+    planes_h = [p.cpu() for p in planes_c]
+    for l, (lh, lw) in enumerate(dims.tolist()):
+        lvl = g
+        if l:
+            tmp = PY.resample_rows(g, F, lh)
+            assert _same(tmp, PY.resample_rows(gh, F.cpu(), lh))
+            G = PY.row_antiderivative(tmp)
+            assert _same(G, PY.row_antiderivative(tmp.cpu()))
+            lvl = PY.resample_cols(tmp, G, lw)
+            assert _same(lvl, PY.resample_cols(tmp.cpu(), G.cpu(), lw))
+        lohi = PY.edge_range(lvl)
+        assert _same(lohi, PY.edge_range(lvl.cpu()))
+        M = PY.moment_antiderivative(lvl)
+        assert _same(M, PY.moment_antiderivative(lvl.cpu()))
+        I = PY.row_antiderivative(M)
+        assert _same(I, PY.row_antiderivative(M.cpu()))
+        PY.pack_level(lvl, lohi, I, radius, int(yoff[l]), *planes_c)
+        PY.pack_level(lvl.cpu(), lohi.cpu(), I.cpu(), radius, int(yoff[l]),
+                      *planes_h)
+    for pc, ph in zip(planes_c, planes_h):
+        assert _same(pc, ph)
+    L = len(dims)
+    assert {k: CF.LAUNCHES[k] - before[k] for k in CF.LAUNCHES
+            if k.startswith("pyramid_")} == {
+        "pyramid_gray": 1, "pyramid_col_scan": 1 + L,
+        "pyramid_row_scan": 2 * L - 1, "pyramid_resample_rows": L - 1,
+        "pyramid_resample_cols": L - 1, "pyramid_edge_range": L,
+        "pyramid_pack": L}
+
+
+@pytest.mark.gpu
+def test_build_scene_on_card_equals_cpu(cuda):
+    """build_scene on the card (the kernels) against the CPU (the twins):
+    every atlas, dims, yoff and the colour plane bit for bit, whole and as
+    view blocks, on a rig of mixed sizes with a gray camera."""
+    sc = make_scene(num_cams=4, width=200, height=150, num_seeds=8)
+    images = list(sc.images)
+    images[1] = _pyramid_image((131, 97), 6)
+    images[2] = _pyramid_image((150, 200), 7, gray=True)
+    for kw in (dict(patch_radius=5, max_lod=4),
+               dict(patch_radius=15, max_lod=8, lod_ratio=0.5)):
+        cfg = MvsConfig(**kw)
+        for vb in (None, (1, 2)):
+            card = build_scene(sc.params, images, cfg, device=cuda,
+                               view_block=vb)
+            cpu = build_scene(sc.params, images, cfg, device="cpu",
+                              view_block=vb)
+            for f in dataclasses.fields(cpu.pyramids):
+                assert _same(getattr(card.pyramids, f.name),
+                             getattr(cpu.pyramids, f.name)), (kw, vb, f.name)
 
 
 @pytest.mark.gpu
