@@ -1495,9 +1495,9 @@ def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
     if G.counts != {"captured": 3, "replayed": 6, "eager": 0}:
         fail(f"graphs: counts {G.counts}, expected 3 captures (flat, "
              f"chunk, view) and 6 replays")
-    out["capture_s"] = G.capture_s
+    out["capture_s"] = caps = G.trace.seconds("refine/capture")
     out["pool_bytes"] = G.pool_bytes
-    log(f"graphs (f): capture {', '.join(f'{t:.3f}' for t in G.capture_s)}"
+    log(f"graphs (f): capture {', '.join(f'{t:.3f}' for t in caps)}"
         f" s per key (flat, chunk, view); pool {G.pool_bytes} bytes "
         f"({G.pool_bytes / 2 ** 30:.3f} GiB); peak device memory over "
         f"(a)-(c) {peak:.3f} GiB above the script's "
@@ -1700,7 +1700,8 @@ def exit_phase(scene, cfg, pb, nvm, work, d22, rsc2, n_seeds, ref16,
     if G.counts != {"captured": 3, "replayed": 18, "eager": 0}:
         fail(f"exit (a)-(c): counts {G.counts}, expected 3 captures and 18 "
              f"replays")
-    log(f"exit (a)-(c): captures {', '.join(f'{t:.3f}' for t in G.capture_s)}"
+    caps = G.trace.seconds("refine/capture")
+    log(f"exit (a)-(c): captures {', '.join(f'{t:.3f}' for t in caps)}"
         f" s (flat, chunk, view); pool {G.pool_bytes} bytes")
     del G, flat_g, chunk_g, view_g
     torch.distributed.destroy_process_group()

@@ -54,6 +54,7 @@ from pais_mvs_tpu_torch.ops import graphs as graphs_mod
 from pais_mvs_tpu_torch.ops import lifecycle as lc
 from pais_mvs_tpu_torch.parallel import mesh as mesh_mod
 from pais_mvs_tpu_torch.parallel.sharded import patch_seed, refine_sharded
+from pais_mvs_tpu_torch.trace import Trace
 
 
 def _log_to(logger, verbose: bool, msg: str) -> None:
@@ -71,8 +72,12 @@ class Reconstructor:
     def __init__(self, params: Sequence[CameraParams],
                  images: Sequence[np.ndarray], cfg: MvsConfig,
                  verbose: bool = True, use_native: Optional[bool] = None,
-                 logger=None, device="cuda", mesh=None, graphs: bool = True):
+                 logger=None, device="cuda", mesh=None, graphs: bool = True,
+                 trace: Optional[Trace] = None):
         self.cfg = cfg
+        # the job's spans and counters (trace.py): the CLI's job's, else
+        # this object's own
+        self.trace = tr = Trace() if trace is None else trace
         self.params = list(params)
         self.verbose = verbose
         self.logger = logger
@@ -83,11 +88,12 @@ class Reconstructor:
         self.use_native = True if use_native is None else bool(use_native)
         if self.use_native:
             native_rt.lib()
-        _t0 = time.perf_counter()
         split: Dict[str, float] = {}
-        self.scene: Scene = build_scene(params, images, cfg, self.device,
-                                        split=split)
-        _scene_s = time.perf_counter() - _t0
+        with tr.span("scene/build") as build:
+            self.scene: Scene = build_scene(params, images, cfg,
+                                            self.device, split=split,
+                                            trace=tr)
+        scene_s = build.seconds
         self.widths = [img.shape[1] for img in images]
         self.heights = [img.shape[0] for img in images]
         self.arena = PatchArena(self.scene.num_cameras)
@@ -115,7 +121,8 @@ class Reconstructor:
         # arm. A mesh on gloo refines eagerly: its collectives stage
         # through host memory
         self.graphs = graphs_mod.RefineGraphs(
-            enabled=graphs, log=functools.partial(_log_to, logger, verbose))
+            enabled=graphs, log=functools.partial(_log_to, logger, verbose),
+            trace=tr)
         gloo = mesh is not None and not (mesh.patch.capturable
                                          and mesh.view.capturable)
         self._refine = (self.graphs.eager_refine(graphs_mod.EAGER_GLOO)
@@ -124,9 +131,9 @@ class Reconstructor:
         # kernels (CUDA events; the twins' host time on the CPU) and the
         # rest (the rig, allocations, launches' host side)
         self.stats: Dict[str, object] = {
-            "scene_build_s": round(_scene_s, 2),
+            "scene_build_s": round(scene_s, 2),
             **{f"scene_{k}": v for k, v in split.items()},
-            "scene_other_s": _scene_s - sum(split.values()),
+            "scene_other_s": scene_s - sum(split.values()),
             "refine_graphs": self.graphs.counts, "refine_host_s": 0.0}
         self._seed_pb: Optional[PatchBatch] = None
         # PSO stream of the multi-rank paths, made on first use
@@ -151,11 +158,23 @@ class Reconstructor:
 
     def _log_graphs(self):
         """Record and log the refine graphs' counts, capture time and
-        pool."""
+        pool, and the host's time in the refine's enqueue so far."""
+        tr = self.trace
         self.stats["refine_graph_capture_s"] = round(
-            sum(self.graphs.capture_s), 3)
+            tr.total("refine/capture"), 3)
         self.stats["refine_graph_pool_bytes"] = self.graphs.pool_bytes
+        self.stats["refine_host_s"] = tr.total("refine/enqueue")
         self._log(self.graphs.summary())
+
+    def trace_summary(self) -> dict:
+        """``stats.json``'s ``trace``: the spans, the counters (the refine
+        graphs' from their ``counts``) and the rounds table."""
+        out = self.trace.summary()
+        c = self.graphs.counts
+        out["counters"].update(graph_keys_captured=c["captured"],
+                               graph_first_runs=c["captured"],
+                               graph_replays=c["replayed"])
+        return out
 
     # ------------------------------------------------------------------
     # seeds
@@ -212,7 +231,21 @@ class Reconstructor:
         if vol > 0:
             self.neighbor_radius = (vol ** (1. / 3.)
                                     * self.cfg.neighbor_radius_scalar)
-        t0 = time.time()
+        with self.trace.span("seeds") as seeds:
+            n, rounds_run = self._refine_seed_rounds(pb)
+        dt = seeds.seconds
+        self.stats["seed_refine_s"] = dt
+        self.stats["seed_rounds"] = rounds_run
+        self.stats["seed_accepted"] = n
+        self._log(f"seeds: {n}/{B} accepted in {dt:.2f}s "
+                  f"({rounds_run} rounds, neighborRadius "
+                  f"{self.neighbor_radius:.5f})")
+        self._log_graphs()
+        return n
+
+    def _refine_seed_rounds(self, pb: PatchBatch):
+        """The seed refine's rounds, its runtime filter and the accepted
+        seeds' insert. Returns (accepted, rounds run)."""
         # re-optimization rounds with early stop: the reference loops each
         # patch until its refCam + camera set stabilize (<= camNum times,
         # patch.cpp:140-172); here a whole-batch round is skipped once
@@ -241,17 +274,9 @@ class Reconstructor:
         keep = out.valid.cpu().numpy()
         n = int(keep.sum())
         self._append_to_arena(out, keep, is_seed=True)
+        self.trace.count("inserted", n)
         self._update_neighbor_radius()
-        dt = time.time() - t0
-        self.stats["seed_refine_s"] = dt
-        self.stats["seed_rounds"] = rounds_run
-        self.stats["seed_accepted"] = n
-        self.stats["seed_pps"] = round(n / max(dt, 1e-9), 2)
-        self._log(f"seeds: {n}/{B} accepted in {dt:.2f}s "
-                  f"({rounds_run} rounds, neighborRadius "
-                  f"{self.neighbor_radius:.5f})")
-        self._log_graphs()
-        return n
+        return n, rounds_run
 
     # ------------------------------------------------------------------
     # device batching
@@ -296,44 +321,60 @@ class Reconstructor:
         last. While the host enqueues slower than the device runs, the
         span holds the device's idle gaps too, so it bounds the device's
         busy time from above and is not that time. On the CPU it is the
-        host clock around the dispatch, which is the work.
-        ``stats["refine_host_s"]`` sums the host's time in here: the
-        chunking, the draws and the launches or graph replays (and each
-        key's first run and capture)."""
-        t_host = time.perf_counter()
-        cuda = self.device.type == "cuda"
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        else:
-            h0 = time.perf_counter()
-        B = pb.capacity
-        sizes = self._chunk_sizes(B)
-        pad = sum(sizes) - B
-        if pad:
-            filler = patch_mod.take(pb, np.zeros(pad, dtype=np.int64))
-            filler = filler.replace(valid=torch.zeros_like(filler.valid))
-            pb = patch_mod.concat(pb, filler)
-        results = []
-        s = 0
-        for size in sizes:
-            chunk = patch_mod.take(pb, np.arange(s, s + size))
-            s += size
-            if self._dp is not None:
-                res = self._refine_dp(chunk, is_seed, rounds, final_filter)
-            else:
-                res = self._refine(
-                    self.scene, self.cfg, chunk, self.neighbor_radius,
-                    is_seed, rounds, final_filter, generator=self.generator)
-            results.append(res)
-        if cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            timer = (start, end)
-        else:
-            timer = time.perf_counter() - h0
-        self.stats["refine_host_s"] += time.perf_counter() - t_host
+        host clock around the dispatch, which is the work. The span
+        ``refine/enqueue`` holds the host's time in here: the chunking
+        (``refine/chunk``), the draws, the copies into a graph's inputs,
+        the replays and the clones of its outputs (``ops/graphs.py``), and
+        each key's first run and capture. A chunk's index upload is a
+        copy from pageable memory, which waits for the stream to drain:
+        on the card that wait is its own span, ``refine/wait``."""
+        tr = self.trace
+        with tr.span("refine/enqueue") as enqueue:
+            cuda = self.device.type == "cuda"
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            B = pb.capacity
+            sizes = self._chunk_sizes(B)
+            pad = sum(sizes) - B
+            if pad:
+                self._drain()
+                with tr.span("refine/chunk"):
+                    filler = patch_mod.take(pb,
+                                            np.zeros(pad, dtype=np.int64))
+                    filler = filler.replace(
+                        valid=torch.zeros_like(filler.valid))
+                    pb = patch_mod.concat(pb, filler)
+            tr.count("refined_rows", B + pad)
+            tr.count("padded_rows", pad)
+            results = []
+            s = 0
+            for size in sizes:
+                self._drain()
+                with tr.span("refine/chunk"):
+                    chunk = patch_mod.take(pb, np.arange(s, s + size))
+                s += size
+                if self._dp is not None:
+                    res = self._refine_dp(chunk, is_seed, rounds,
+                                          final_filter)
+                else:
+                    res = self._refine(
+                        self.scene, self.cfg, chunk, self.neighbor_radius,
+                        is_seed, rounds, final_filter,
+                        generator=self.generator)
+                results.append(res)
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+        timer = (start, end) if cuda else enqueue.seconds
         return results, B, timer
+
+    def _drain(self) -> None:
+        """On the card, wait for the stream to drain (``refine/wait``):
+        the index upload of ``patch_mod.take`` would wait there anyway."""
+        if self.device.type == "cuda":
+            with self.trace.span("refine/wait"):
+                torch.cuda.current_stream(self.device).synchronize()
 
     @staticmethod
     def _merge(handle):
@@ -353,6 +394,8 @@ class Reconstructor:
         merged, its = self._merge(handle)
         host = merged.numpy()
         its = its.cpu().numpy()
+        self.trace.count("fetch_bytes", its.nbytes + sum(
+            v.nbytes for v in host.values()))
         timer = handle[2]
         if isinstance(timer, tuple):
             timer[1].synchronize()
@@ -567,6 +610,10 @@ class Reconstructor:
         sees stale counts (it may generate candidates a fresh insert would
         have suppressed; they die at insert time).
 
+        Each loop trip is an ``expand/round`` span with the round's id;
+        a round's fetch and insert carry its id also where they land in
+        the next trip (pipelined). ``stats["expansion_s"]`` is the
+        ``expand`` span: the grid build and the rounds.
         ``stats["expansion_device_s"]`` sums the refines' launch-to-
         completion spans: CUDA events around each round's launches (the
         host clock on the CPU), never the wait for the fetch, which under
@@ -576,12 +623,10 @@ class Reconstructor:
         """
         cfg = self.cfg
         a = self.arena
-        self.grids = self._grids_build()
-        self._update_neighbor_radius()
-        t0 = time.time()
+        tr = self.trace
         total_refined = 0
         t_device = 0.0
-        host0 = self.stats["refine_host_s"]
+        host0 = tr.total("refine/enqueue")
         self._save_time = a.count // self.autosave_interval
         pipeline = cfg.pipeline_expansion
         C = self.scene.num_cameras
@@ -598,10 +643,13 @@ class Reconstructor:
             order = self._strategy_order(frontier)
             parents = frontier[order][:cfg.wavefront_size]
             a.expanded[parents] = True
+            tr.count("rounds")
+            tr.count("parents", len(parents))
 
             # candidate generation over 4-neighbour cells of every view
-            cand_parent, cand_cam, cand_cx, cand_cy = \
-                self._generate_candidates(parents)
+            with tr.span("expand/candidates"):
+                cand_parent, cand_cam, cand_cx, cand_cy = \
+                    self._generate_candidates(parents)
             if len(cand_parent) == 0:
                 return "skip"
 
@@ -617,6 +665,7 @@ class Reconstructor:
             centers_k, normals_k, masks_k = centers[ok], normals[ok], \
                 masks[ok]
             N = len(centers_k)
+            tr.count("candidates", N)
             sph = np.stack([np.arccos(np.clip(normals_k[:, 2], -1, 1)),
                             np.arctan2(normals_k[:, 1], normals_k[:, 0])],
                            -1)
@@ -682,6 +731,7 @@ class Reconstructor:
                                             is_seed=False)
                     self.grids.insert_patch(int(ids[0]), cm, ip)
                     inserted += 1
+            tr.count("inserted", inserted)
             self._log(f"round {rnd}: {len(prep['parents'])} parents -> "
                       f"{prep['N']} candidates -> {inserted} inserted "
                       f"(total {len(a.live_ids())})")
@@ -695,48 +745,53 @@ class Reconstructor:
             if autosave_path and \
                     a.count // self.autosave_interval > self._save_time:
                 self._save_time = a.count // self.autosave_interval
-                if inflight_parents is not None:
-                    a.expanded[inflight_parents] = False
-                self.save_checkpoint(autosave_path)
-                if inflight_parents is not None:
-                    a.expanded[inflight_parents] = True
-                self._live_snapshot()
+                self._autosave(autosave_path, inflight_parents)
 
-        pending = None              # (prep, handle, round#) awaiting insert
-        rnd = 0
-        while rnd < max_rounds:
-            prep = prepare()
-            if prep is None and pending is None:
-                break
-            handle = None
-            if isinstance(prep, dict):
-                handle = self._refine_all_async(prep["pb"], is_seed=False,
-                                                rounds=1)
-                total_refined += prep["N"]
-            if pending is not None:
-                pprep, phandle, prnd = pending
-                pending = None
-                out, _, dt = self._refine_fetch(phandle)
-                t_device += dt
-                insert(pprep, out, prnd,
-                       inflight_parents=(prep["parents"]
-                                         if isinstance(prep, dict)
-                                         else None))
-            if handle is not None:
-                if pipeline:
-                    pending = (prep, handle, rnd)
-                else:
-                    out, _, dt = self._refine_fetch(handle)
-                    t_device += dt
-                    insert(prep, out, rnd)
-            rnd += 1
-        if pending is not None:     # max_rounds hit with one in flight
-            pprep, phandle, prnd = pending
-            out, _, dt = self._refine_fetch(phandle)
+        def land(prep, handle, rnd, inflight_parents=None):
+            """Round ``rnd``'s fetch and insert."""
+            nonlocal t_device
+            with tr.span("refine/fetch", round=rnd):
+                out, _, dt = self._refine_fetch(handle)
             t_device += dt
-            insert(pprep, out, prnd)
-        self._update_neighbor_radius()
-        wall = time.time() - t0
+            with tr.span("expand/insert", round=rnd):
+                insert(prep, out, rnd, inflight_parents)
+
+        with tr.span("expand") as expand:
+            with tr.span("expand/grids"):
+                self.grids = self._grids_build()
+                self._update_neighbor_radius()
+            pending = None          # (prep, handle, round#) awaiting insert
+            rnd = 0
+            while rnd < max_rounds:
+                with tr.span("expand/round", round=rnd):
+                    with tr.span("expand/prepare"):
+                        prep = prepare()
+                    if prep is None and pending is None:
+                        break
+                    handle = None
+                    if isinstance(prep, dict):
+                        handle = self._refine_all_async(
+                            prep["pb"], is_seed=False, rounds=1)
+                        total_refined += prep["N"]
+                    if pending is not None:
+                        pprep, phandle, prnd = pending
+                        pending = None
+                        land(pprep, phandle, prnd,
+                             inflight_parents=(prep["parents"]
+                                               if isinstance(prep, dict)
+                                               else None))
+                    if handle is not None:
+                        if pipeline:
+                            pending = (prep, handle, rnd)
+                        else:
+                            land(prep, handle, rnd)
+                rnd += 1
+            if pending is not None:     # max_rounds hit with one in flight
+                pprep, phandle, prnd = pending
+                with tr.span("expand/round", round=prnd):
+                    land(pprep, phandle, prnd)
+            self._update_neighbor_radius()
+        wall = expand.seconds
         self.stats["expansion_s"] = wall
         # the host share from the rounded device share, so that the two
         # add up to expansion_s at the three decimals they keep
@@ -747,9 +802,22 @@ class Reconstructor:
         self.stats["expansion_pps"] = round(
             total_refined / max(wall, 1e-9), 2)
         self.stats["expansion_refine_host_s"] = round(
-            self.stats["refine_host_s"] - host0, 3)
+            tr.total("refine/enqueue") - host0, 3)
         self._log_graphs()
         return len(a.live_ids())
+
+    def _autosave(self, path: str, inflight_parents=None) -> None:
+        """One autosave: the checkpoint, with ``inflight_parents`` (popped,
+        their children still in flight) written unexpanded, and the live
+        snapshot."""
+        a = self.arena
+        with self.trace.span("autosave"):
+            if inflight_parents is not None:
+                a.expanded[inflight_parents] = False
+            self.save_checkpoint(path)
+            if inflight_parents is not None:
+                a.expanded[inflight_parents] = True
+            self._live_snapshot()
 
     def expand_distributed(self, mesh=None, max_rounds: int = 10_000,
                            per_shard: int = 256, refine_budget=None,
@@ -848,7 +916,7 @@ class Reconstructor:
         cuda = dev.type == "cuda"
 
         t0 = time.time()
-        total_inserted = total_spilled = total_refined = 0
+        total_spilled = total_refined = 0
         stall_rounds = rounds_run = 0
         t_device = t_refine = 0.0
         # per-parent record of candidates that already SPENT their one
@@ -936,7 +1004,6 @@ class Reconstructor:
             if acc.any():
                 self._append_rows(out_pb.numpy(), np.nonzero(acc)[0],
                                   is_seed=False)
-                total_inserted += int(acc.sum())
             rc = ref_cand.cpu().numpy()                       # [N, 4C]
             total_refined += int(rc.sum())
             n_spill = int(spilled[0])
@@ -976,8 +1043,7 @@ class Reconstructor:
             if autosave_path and \
                     a.count // self.autosave_interval > self._dist_save_time:
                 self._dist_save_time = a.count // self.autosave_interval
-                self.save_checkpoint(autosave_path)
-                self._live_snapshot()
+                self._autosave(autosave_path)
         else:
             # a round cap that leaves live unexpanded parents must be
             # LOUD, or a truncated cloud looks like a finished run
@@ -995,7 +1061,6 @@ class Reconstructor:
         self.stats["dist_device_s"] = round(t_device, 3)
         self.stats["dist_refine_device_s"] = round(t_refine, 3)
         self.stats["dist_rounds"] = rounds_run
-        self.stats["dist_inserted"] = total_inserted
         self.stats["dist_spilled"] = total_spilled
         self.stats["dist_refined"] = total_refined
         self.stats["dist_pps"] = round(total_refined / max(wall, 1e-9), 2)
@@ -1208,7 +1273,9 @@ class Reconstructor:
     # The format is the JAX package's: either engine resumes the other's.
     # ------------------------------------------------------------------
     def save_checkpoint(self, mvs_path: str) -> None:
-        self.write_mvs(mvs_path)
+        tr = self.trace
+        with tr.span("autosave/mvs"):
+            self.write_mvs(mvs_path)
         a = self.arena
         n = a.count
         state = {f"d_{k}": v[:n] for k, v in a.data.items()}
@@ -1220,13 +1287,18 @@ class Reconstructor:
         # write-then-rename: a crash mid-save must never leave a truncated
         # sidecar that poisons the next resume
         tmp = mvs_path + f".state.npz.{os.getpid()}.tmp"
-        with open(tmp, "wb") as fh:
-            np.savez_compressed(
-                fh, count=np.asarray(n), alive=a.alive[:n],
-                expanded=a.expanded[:n],
-                deleted_ids=np.asarray(a.deleted_ids, dtype=np.int64),
-                neighbor_radius=np.asarray(self.neighbor_radius), **state)
-        os.replace(tmp, mvs_path + ".state.npz")
+        with tr.span("autosave/sidecar"):
+            with open(tmp, "wb") as fh:
+                np.savez_compressed(
+                    fh, count=np.asarray(n), alive=a.alive[:n],
+                    expanded=a.expanded[:n],
+                    deleted_ids=np.asarray(a.deleted_ids, dtype=np.int64),
+                    neighbor_radius=np.asarray(self.neighbor_radius),
+                    **state)
+            os.replace(tmp, mvs_path + ".state.npz")
+        tr.count("autosaves")
+        tr.count("autosave_bytes", os.path.getsize(mvs_path)
+                 + os.path.getsize(mvs_path + ".state.npz"))
 
     def load_checkpoint(self, mvs_path: str) -> bool:
         """Restore the arena from ``mvs_path + '.state.npz'`` if present and
@@ -1290,8 +1362,9 @@ class Reconstructor:
             return
         tmp = os.path.join(self.live_snapshot_dir, ".live_snapshot.tmp")
         dst = os.path.join(self.live_snapshot_dir, "live_snapshot.ply")
-        self.write_ply(tmp)
-        os.replace(tmp, dst)       # atomic: a watcher never sees a torn file
+        with self.trace.span("autosave/snapshot"):
+            self.write_ply(tmp)
+            os.replace(tmp, dst)   # atomic: a watcher never sees a torn file
 
     def write_ply(self, path: str, deleted: bool = False) -> None:
         a = self.arena

@@ -14,7 +14,6 @@ silently casts); the image pyramids are built on the scene's device
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -24,6 +23,7 @@ import torch
 from pais_mvs_tpu_torch import resolve_device
 from pais_mvs_tpu_torch.config import MvsConfig
 from pais_mvs_tpu_torch.ops import pyramid as pyr
+from pais_mvs_tpu_torch.trace import Trace
 
 
 @dataclass
@@ -199,7 +199,8 @@ def build_scene(params: Sequence[CameraParams],
                 rgb_images: Sequence[np.ndarray],
                 cfg: MvsConfig, device="cuda",
                 view_block: Optional[Tuple[int, int]] = None,
-                split: Optional[dict] = None) -> Scene:
+                split: Optional[dict] = None,
+                trace: Optional[Trace] = None) -> Scene:
     """Assemble the device-side Scene from parsed cameras + decoded images.
 
     ``rgb_images[i]`` is a uint8 [H, W, 3] (or gray [H, W]) array for camera
@@ -220,25 +221,29 @@ def build_scene(params: Sequence[CameraParams],
     width) still comes from every camera. ``split``, when given, gets the
     seconds of the undistortion (``undistort_s``), the uploads
     (``upload_s``, host clock) and the pyramid steps (``kernel_s``: CUDA
-    events on the card, the host clock on the CPU).
+    events on the card, the host clock on the CPU), from the spans
+    ``scene/undistort``, ``scene/upload`` and ``scene/pyramid`` (one a
+    camera) recorded in ``trace`` (a ``trace.Trace``; a fresh one when
+    None).
     """
+    tr = Trace() if trace is None else trace
     dev = resolve_device(device)
     C = len(params)
     if C != len(rgb_images):
         raise ValueError(f"{C} cameras but {len(rgb_images)} images")
     blk = slice(None) if view_block is None else _block_slice(C, *view_block)
-    t0 = time.perf_counter()
-    if cfg.apply_distortion:
-        rgb_images = [
-            undistort_image(img, p.focal,
-                            (np.array([img.shape[1] >> 1,
-                                       img.shape[0] >> 1], float)
-                             if p.principal[0] < 0 and p.principal[1] < 0
-                             else p.principal),
-                            float(p.radial_distortion))
-            if abs(float(p.radial_distortion)) > 1e-12 else img
-            for p, img in zip(params, rgb_images)]
-    t_undistort = time.perf_counter() - t0
+    with tr.span("scene/undistort") as undistort:
+        if cfg.apply_distortion:
+            rgb_images = [
+                undistort_image(img, p.focal,
+                                (np.array([img.shape[1] >> 1,
+                                           img.shape[0] >> 1], float)
+                                 if p.principal[0] < 0
+                                 and p.principal[1] < 0
+                                 else p.principal),
+                                float(p.radial_distortion))
+                if abs(float(p.radial_distortion)) > 1e-12 else img
+                for p, img in zip(params, rgb_images)]
     R = np.zeros((C, 3, 3)); T = np.zeros((C, 3)); centers = np.zeros((C, 3))
     focal = np.zeros((C, 2)); principal = np.zeros((C, 2))
     dist = np.zeros(C); KR = np.zeros((C, 3, 3)); KT = np.zeros((C, 3))
@@ -287,30 +292,30 @@ def build_scene(params: Sequence[CameraParams],
     on_card = dev.type == "cuda"
     staging = torch.empty(max(rgb_images[i].size for i in cams),
                           dtype=torch.uint8, device=dev)
-    t_upload, t_kernel, spans = 0.0, 0.0, []
+    t_upload, t_kernel, events = 0.0, 0.0, []
     for j, i in enumerate(cams):
         img = pyr.host_tensor(rgb_images[i])
         if on_card:
             torch.cuda.synchronize(dev)    # the upload alone on the clock
-        t0 = time.perf_counter()
-        up = staging[:img.numel()].view(img.shape)
-        up.copy_(img)
-        t_upload += time.perf_counter() - t0
+        with tr.span("scene/upload") as upload:
+            up = staging[:img.numel()].view(img.shape)
+            up.copy_(img)
+        t_upload += upload.seconds
         if on_card:
-            spans.append((torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True)))
-            spans[-1][0].record()
-        t0 = time.perf_counter()
-        pyr.build_camera(up, dims_all[i], cfg.patch_radius, yoff, images[j],
-                         edges[j], var[j], rgb[j])
-        t_kernel += time.perf_counter() - t0
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+        with tr.span("scene/pyramid") as pyramid:
+            pyr.build_camera(up, dims_all[i], cfg.patch_radius, yoff,
+                             images[j], edges[j], var[j], rgb[j])
+        t_kernel += pyramid.seconds
         if on_card:
-            spans[-1][1].record()
+            events[-1][1].record()
     if on_card:
         torch.cuda.synchronize(dev)
-        t_kernel = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        t_kernel = sum(a.elapsed_time(b) for a, b in events) / 1e3
     if split is not None:
-        split.update(undistort_s=t_undistort, upload_s=t_upload,
+        split.update(undistort_s=undistort.seconds, upload_s=t_upload,
                      kernel_s=t_kernel)
 
     def f32(a):

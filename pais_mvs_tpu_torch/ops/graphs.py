@@ -23,6 +23,11 @@ the identity of the scene or camera block and of the view collective,
     outputs: every graph's outputs live in one shared memory pool, which
     the next replay overwrites.
 
+The steps are spans of the job's ``trace.Trace``: ``refine/draws``,
+``refine/stage`` (the copies into the static inputs), ``refine/replay``,
+``refine/clone``; a key's ``refine/first_run`` (with the wait for its
+device work) and ``refine/capture``.
+
 PSO draws come from the caller's generator before the replay, round by
 round, in the order ``refine_batch(generator=)`` draws them inside
 ``gln_pso`` (``lifecycle.refine_draws``), so the graphed and the eager
@@ -47,7 +52,6 @@ fails in a capture or a replay raises.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
@@ -57,6 +61,7 @@ from pais_mvs_tpu_torch.models.patch import PatchBatch, _map
 from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import lifecycle as lc
 from pais_mvs_tpu_torch.ops.pso import PsoDraws
+from pais_mvs_tpu_torch.trace import Trace
 
 # why a refine runs eagerly
 EAGER_OFF = "graphs=False (the eager arm)"
@@ -122,13 +127,15 @@ class RefineGraphs:
 
     ``counts``: refines that captured a graph (their own run is eager),
     that replayed one, and that ran eagerly on a stated path. ``log`` gets
-    each eager path's reason once."""
+    each eager path's reason once. ``trace`` records the steps' spans
+    (``trace.seconds("refine/capture")``: each capture's seconds)."""
 
     def __init__(self, enabled: bool = True,
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None,
+                 trace: Optional[Trace] = None):
         self.enabled = enabled
         self.counts = {"captured": 0, "replayed": 0, "eager": 0}
-        self.capture_s: list = []       # seconds per capture
+        self.trace = Trace() if trace is None else trace
         self.pool_bytes = 0             # device memory the captures reserved
         self._log = log or (lambda msg: None)
         self._reasons: set = set()
@@ -139,7 +146,8 @@ class RefineGraphs:
         c = self.counts
         return (f"refine graphs: captured {c['captured']}, replayed "
                 f"{c['replayed']}, eager {c['eager']}; capture "
-                f"{sum(self.capture_s):.3f} s, pool {self.pool_bytes} bytes")
+                f"{self.trace.total('refine/capture'):.3f} s, pool "
+                f"{self.pool_bytes} bytes")
 
     def eager(self, reason: Optional[str]) -> None:
         """Count one eager refine; log its reason (``EAGER_OFF`` when the
@@ -170,32 +178,39 @@ class RefineGraphs:
             return lc.refine_batch(scene, cfg, pb, neighbor_radius, is_seed,
                                    rounds, final_filter, generator=generator,
                                    draws=draws, view=view)
+        tr = self.trace
         if draws is None:
-            draws = lc.refine_draws(pb.capacity, cfg, is_seed, rounds,
-                                    generator, pb.device)
+            with tr.span("refine/draws"):
+                draws = lc.refine_draws(pb.capacity, cfg, is_seed, rounds,
+                                        generator, pb.device)
         key = graph_key(pb.capacity, cfg, is_seed, rounds, final_filter,
                         scene, view)
         g = self._graphs.get(key)
         if g is None:
-            res = lc.refine_batch(scene, cfg, pb, neighbor_radius, is_seed,
-                                  rounds, final_filter, draws=draws,
-                                  view=view)
+            with tr.span("refine/first_run"):
+                res = lc.refine_batch(scene, cfg, pb, neighbor_radius,
+                                      is_seed, rounds, final_filter,
+                                      draws=draws, view=view)
+                torch.cuda.synchronize(pb.device)
             self._graphs[key] = self._capture(scene, cfg, pb, is_seed,
                                               rounds, final_filter, draws,
                                               view)
             self.counts["captured"] += 1
             return res
-        for f in dataclasses.fields(PatchBatch):
-            getattr(g.batch, f.name).copy_(getattr(pb, f.name))
-        g.neighbor_radius.fill_(neighbor_radius)
-        for static, d in zip(g.draws, draws):
-            for s, t in zip(static, d):
-                s.copy_(t)
-        g.graph.replay()
+        with tr.span("refine/stage"):
+            for f in dataclasses.fields(PatchBatch):
+                getattr(g.batch, f.name).copy_(getattr(pb, f.name))
+            g.neighbor_radius.fill_(neighbor_radius)
+            for static, d in zip(g.draws, draws):
+                for s, t in zip(static, d):
+                    s.copy_(t)
+        with tr.span("refine/replay"):
+            g.graph.replay()
         add_launches(CF.LAUNCHES, g.launches)
         self.counts["replayed"] += 1
-        return lc.RefineResult(_map(torch.clone, g.out.batch),
-                               g.out.iterations.clone())
+        with tr.span("refine/clone"):
+            return lc.RefineResult(_map(torch.clone, g.out.batch),
+                                   g.out.iterations.clone())
 
     def _capture(self, scene, cfg, pb, is_seed, rounds, final_filter, draws,
                  view) -> _Graph:
@@ -217,12 +232,10 @@ class RefineGraphs:
                                            rounds, final_filter,
                                            draws=sdraws, view=view))
 
-        torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        launches = counted_capture(CF.LAUNCHES, capture)
-        self.capture_s.append(time.perf_counter() - t0)
+        with self.trace.span("refine/capture"):
+            launches = counted_capture(CF.LAUNCHES, capture)
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         return _Graph(graph, batch, nr, sdraws, out[0], launches, scene,
                       view)

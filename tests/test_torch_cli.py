@@ -4,7 +4,9 @@ reference's artifacts, a mid-run autosave (and its live snapshot), the
 ``-r auto_save.mvs`` resume from it, ``-r`` from an ``.mvs`` without a
 sidecar, bit-determinism for a fixed rngSeed; ``-r`` on an NVM without
 sparse points (feature seeding), ``-r -b`` (bundle adjustment), ``-v
---patch-id --reoptimize``, ``-a`` and ``--profile``; ``-r
+--patch-id --reoptimize``, ``-a`` and ``--profile`` (``-r`` with its
+spans on the profiler's timeline and ``idle.json``); the job's spans and
+counters in ``stats.json``; ``-r
 --distributed-expansion`` in a world of one and in two processes joined by
 ``--coordinator`` (bit-equal clouds); a clean SystemExit for every
 multi-process flag that cannot lay out the run, and no silent fallback to
@@ -30,6 +32,26 @@ from pais_mvs_tpu_torch.io.nvm import save_nvm
 from pais_mvs_tpu_torch.io.pointcloud import read_ply
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the spans and counters the benchmark's per-layer metrics read that every
+# -r job records (the refine graphs' spans only on the card)
+JOB_SPANS = ("job", "scene/decode", "scene/build", "seeds", "expand",
+             "expand/prepare", "expand/insert", "autosave",
+             "autosave/sidecar", "refine/enqueue", "refine/chunk",
+             "refine/fetch", "writers")
+GRAPH_SPANS = ("refine/draws", "refine/stage", "refine/replay",
+               "refine/clone", "refine/first_run", "refine/capture",
+               "refine/wait")
+COUNTERS = ("rounds", "parents", "candidates", "refined_rows",
+            "padded_rows", "inserted", "autosaves", "autosave_bytes",
+            "fetch_bytes", "graph_keys_captured", "graph_first_runs",
+            "graph_replays")
+OLD_KEYS = ("scene_build_s", "scene_undistort_s", "scene_upload_s",
+            "scene_kernel_s", "scene_other_s", "refine_graphs",
+            "refine_host_s", "seed_refine_s", "seed_rounds",
+            "seed_accepted", "refine_graph_capture_s",
+            "refine_graph_pool_bytes", "expansion_s", "expansion_device_s",
+            "expansion_host_s", "expansion_refined", "expansion_pps",
+            "expansion_refine_host_s", "live_patches")
 CONFIG = ("patchRadius 4\nmaxLOD 3\nparticleNum 6\nmaxIteration 6\n"
           "distWeighting 1.3333\nseedRefineRounds 1\nminCamNum 3\n"
           "cellSize 14\nwavefrontSize 64\nbatchSize 64\n")
@@ -71,6 +93,7 @@ def test_reconstruct_filter_and_resume(disk_scene, monkeypatch, capsys):
     stats = json.loads((d / "stats.json").read_text())
     assert stats["live_patches"] == len(f.patches.centers)
     assert 0 < stats["expansion_device_s"] <= stats["expansion_s"]
+    check_job_trace(stats, d)
     assert len(read_ply(str(d / "exp.ply"))[0]) == len(f.patches.centers)
     assert os.path.getsize(d / "exp.psr") == 24 * len(f.patches.centers)
     saved = mvsbin.read_mvs(str(d / "auto_save.mvs"))
@@ -111,6 +134,54 @@ def test_reconstruct_filter_and_resume(disk_scene, monkeypatch, capsys):
     g = mvsbin.read_mvs(str(again / "exp.mvs"))
     assert len(g.patches.centers) > 80
     assert np.median(sc.surface_distance(g.patches.centers)) < 0.01
+
+
+def check_job_trace(stats, d):
+    """A -r job's ``stats.json``: its old keys, and the spans and
+    counters of ``trace`` with the sums they must keep."""
+    assert set(OLD_KEYS) <= set(stats)
+    tr = stats["trace"]
+    sp, c = tr["spans"], tr["counters"]
+    assert set(JOB_SPANS) <= set(sp) and set(COUNTERS) == set(c)
+    assert not set(GRAPH_SPANS) & set(sp)       # the CPU refines eagerly
+    assert c["graph_keys_captured"] == c["graph_first_runs"] == 0
+    # the root's self time and its children's totals make the job
+    kids = ("scene/decode", "scene/build", "seeds/load", "seeds", "expand",
+            "writers")
+    assert sp["job"]["n"] == 1
+    assert sp["job"]["self_s"] + sum(sp[k]["total_s"] for k in kids) == \
+        pytest.approx(sp["job"]["total_s"], rel=1e-9)
+    for v in sp.values():
+        assert 0 <= v["self_s"] <= v["total_s"] + 1e-12
+    # the stats the spans write
+    assert stats["seed_refine_s"] == sp["seeds"]["total_s"]
+    assert stats["expansion_s"] == sp["expand"]["total_s"]
+    assert stats["refine_host_s"] == sp["refine/enqueue"]["total_s"]
+    assert round(stats["scene_build_s"], 2) == round(
+        sp["scene/build"]["total_s"], 2)
+    assert 0 < c["inserted"] <= c["refined_rows"]
+    assert c["inserted"] == stats["live_patches"]     # -r deletes none
+    assert c["padded_rows"] < c["refined_rows"]
+    assert c["rounds"] == sp["expand/prepare"]["n"] - 1   # the empty pop
+    assert c["autosaves"] == sp["autosave"]["n"] >= 2
+    assert c["autosave_bytes"] >= os.path.getsize(d / "auto_save.mvs") + \
+        os.path.getsize(d / "auto_save.mvs.state.npz")
+    assert c["fetch_bytes"] > 0
+    # the rounds table adds up to the expansion, less the grid build and
+    # the loop's own steps
+    rows = tr["rounds"]
+    assert [r["round"] for r in rows] == list(range(len(rows)))
+    cols = ("prepare_s", "enqueue_s", "fetch_s", "insert_s", "autosave_s")
+    in_rounds = sum(r[k] for r in rows for k in cols)
+    assert in_rounds <= stats["expansion_s"]
+    assert in_rounds + sp["expand/grids"]["total_s"] == pytest.approx(
+        stats["expansion_s"], rel=0.03)
+    for k in ("parents", "candidates"):
+        assert sum(r[k] for r in rows) == c[k]
+    # the job's counters hold the seed stage's refines and inserts too
+    assert sum(r["refined_rows"] for r in rows) < c["refined_rows"]
+    assert sum(r["inserted"] for r in rows) == \
+        c["inserted"] - stats["seed_accepted"]
 
 
 def test_reconstruction_is_deterministic(disk_scene, monkeypatch, tmp_path):
@@ -229,7 +300,8 @@ def test_animate_writes_insertion_order(reconstructed, tmp_path):
     np.testing.assert_allclose(xyz, f.patches.centers, atol=1e-5)
 
 
-def test_profile_writes_a_trace(reconstructed, tmp_path):
+def test_profile_writes_a_trace(disk_scene, reconstructed, monkeypatch,
+                                tmp_path):
     path, _ = reconstructed
     prof = tmp_path / "prof"
     assert cli.main(["-a", str(path), "-o", str(tmp_path), "--profile",
@@ -237,6 +309,23 @@ def test_profile_writes_a_trace(reconstructed, tmp_path):
     trace = json.loads((prof / "trace.json").read_text())
     assert trace["traceEvents"]
     assert (tmp_path / "animate.ply").exists()
+    # -r: the job's spans on the profiler's timeline, and idle.json
+    d, _ = disk_scene
+    monkeypatch.chdir(d)
+    monkeypatch.setattr(Reconstructor, "autosave_interval", 40)
+    out = tmp_path / "r"
+    assert cli.main(["-r", "scene.nvm", "-o", str(out), "--profile",
+                     str(prof), "--device", "cpu"]) == 0
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    names = {e["name"].split(" round=")[0] for e in events
+             if e.get("cat") == "user_annotation"}
+    assert set(JOB_SPANS) | {"expand/round", "expand/candidates"} <= names
+    assert any(e.get("name") == "expand/round round=0" for e in events)
+    idle = json.loads((prof / "idle.json").read_text())
+    assert idle["device"] == "cpu" and idle["job_s"] > 0
+    assert idle["busy_s"] is None          # no device activity to attribute
+    stats = json.loads((out / "stats.json").read_text())
+    assert set(JOB_SPANS) <= set(stats["trace"]["spans"])
 
 
 @pytest.mark.parametrize("argv,msg", [
