@@ -45,6 +45,7 @@ from pais_mvs_tpu_torch import resolve_device
 from pais_mvs_tpu_torch.config import MvsConfig
 from pais_mvs_tpu_torch.engine.arena import PatchArena
 from pais_mvs_tpu_torch.engine.cellgrid import CellGrids
+from pais_mvs_tpu_torch.io import npz
 from pais_mvs_tpu_torch.io.mvsbin import MvsPatchData, write_mvs
 from pais_mvs_tpu_torch.io.pointcloud import write_ply, write_psr
 from pais_mvs_tpu_torch.models import patch as patch_mod
@@ -1270,7 +1271,9 @@ class Reconstructor:
     # restarts expansion ordering from scratch on resume. The sidecar
     # .state.npz captures the FULL arena (expanded flags, deleted archive,
     # neighborRadius), so resume continues exactly where the run stopped.
-    # The format is the JAX package's: either engine resumes the other's.
+    # The format is the JAX package's (``np.savez_compressed``'s zip, here
+    # deflated block by block across the host's cores, ``io/npz.py``):
+    # either engine resumes the other's.
     # ------------------------------------------------------------------
     def save_checkpoint(self, mvs_path: str) -> None:
         tr = self.trace
@@ -1289,7 +1292,7 @@ class Reconstructor:
         tmp = mvs_path + f".state.npz.{os.getpid()}.tmp"
         with tr.span("autosave/sidecar"):
             with open(tmp, "wb") as fh:
-                np.savez_compressed(
+                raw, blocks = npz.savez_deflated(
                     fh, count=np.asarray(n), alive=a.alive[:n],
                     expanded=a.expanded[:n],
                     deleted_ids=np.asarray(a.deleted_ids, dtype=np.int64),
@@ -1299,6 +1302,9 @@ class Reconstructor:
         tr.count("autosaves")
         tr.count("autosave_bytes", os.path.getsize(mvs_path)
                  + os.path.getsize(mvs_path + ".state.npz"))
+        tr.count("sidecar_raw_bytes", raw)
+        tr.count("deflate_blocks", blocks)
+        tr.set("deflate_threads", npz.threads())
 
     def load_checkpoint(self, mvs_path: str) -> bool:
         """Restore the arena from ``mvs_path + '.state.npz'`` if present and

@@ -40,13 +40,17 @@ The port's spans, from the CLI down (``cli.py``,
                         upload would), refine/chunk, then refine/draws,
                         refine/stage, refine/replay, refine/clone, or a
                         key's refine/first_run and refine/capture
-  autosave              autosave/mvs, autosave/sidecar, autosave/snapshot
+  autosave              autosave/mvs, autosave/sidecar (the sidecar's
+                        deflate, write and rename), autosave/snapshot
   writers               init, seed and exp ``.mvs``, PLY, PSR
 
 and its counters: rounds, parents, candidates, refined_rows (padding
-included), padded_rows, inserted, autosaves, autosave_bytes, fetch_bytes,
-and from ``RefineGraphs.counts`` graph_keys_captured, graph_first_runs and
-graph_replays.
+included), padded_rows, inserted, autosaves, autosave_bytes,
+sidecar_raw_bytes (the sidecars' ``.npy`` bytes deflated), deflate_blocks
+(the blocks handed to the deflate pool), fetch_bytes, and from
+``RefineGraphs.counts`` graph_keys_captured, graph_first_runs and
+graph_replays; deflate_threads (the deflate pool's width) is set, not
+summed (``Trace.set``).
 """
 
 from __future__ import annotations
@@ -150,6 +154,10 @@ class Trace:
             if r is not None:
                 rc = self._round_counters.setdefault(r, {})
                 rc[name] = rc.get(name, 0) + n
+
+    def set(self, name: str, n: int) -> None:
+        """Set a job counter that holds a level, not a sum."""
+        self.counters[name] = n
 
     def total(self, name: str) -> float:
         """Seconds in the closed spans called ``name``."""

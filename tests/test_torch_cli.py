@@ -6,7 +6,7 @@ sidecar, bit-determinism for a fixed rngSeed; ``-r`` on an NVM without
 sparse points (feature seeding), ``-r -b`` (bundle adjustment), ``-v
 --patch-id --reoptimize``, ``-a`` and ``--profile`` (``-r`` with its
 spans on the profiler's timeline and ``idle.json``); the job's spans and
-counters in ``stats.json``; ``-r
+counters in ``stats.json``, the sidecar deflate's among them; ``-r
 --distributed-expansion`` in a world of one and in two processes joined by
 ``--coordinator`` (bit-equal clouds); a clean SystemExit for every
 multi-process flag that cannot lay out the run, and no silent fallback to
@@ -18,6 +18,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import zipfile
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ import torch_parity  # noqa: F401  (one torch thread per worker)
 from pais_mvs_tpu_torch import cli
 from pais_mvs_tpu_torch.data.synthetic import make_scene
 from pais_mvs_tpu_torch.engine.reconstructor import Reconstructor
-from pais_mvs_tpu_torch.io import mvsbin
+from pais_mvs_tpu_torch.io import mvsbin, npz
 from pais_mvs_tpu_torch.io.nvm import save_nvm
 from pais_mvs_tpu_torch.io.pointcloud import read_ply
 
@@ -43,6 +44,7 @@ GRAPH_SPANS = ("refine/draws", "refine/stage", "refine/replay",
                "refine/wait")
 COUNTERS = ("rounds", "parents", "candidates", "refined_rows",
             "padded_rows", "inserted", "autosaves", "autosave_bytes",
+            "sidecar_raw_bytes", "deflate_blocks", "deflate_threads",
             "fetch_bytes", "graph_keys_captured", "graph_first_runs",
             "graph_replays")
 OLD_KEYS = ("scene_build_s", "scene_undistort_s", "scene_upload_s",
@@ -166,6 +168,7 @@ def check_job_trace(stats, d):
     assert c["autosaves"] == sp["autosave"]["n"] >= 2
     assert c["autosave_bytes"] >= os.path.getsize(d / "auto_save.mvs") + \
         os.path.getsize(d / "auto_save.mvs.state.npz")
+    check_sidecar_counters(c, d / "auto_save.mvs.state.npz")
     assert c["fetch_bytes"] > 0
     # the rounds table adds up to the expansion, less the grid build and
     # the loop's own steps
@@ -182,6 +185,38 @@ def check_job_trace(stats, d):
     assert sum(r["refined_rows"] for r in rows) < c["refined_rows"]
     assert sum(r["inserted"] for r in rows) == \
         c["inserted"] - stats["seed_accepted"]
+
+
+def check_sidecar_counters(c, sidecar):
+    """The sidecar deflate's counters: the ``.npy`` bytes deflated over
+    the job's autosaves (the last sidecar's members among them), at least
+    a block a member, and the deflate pool's width."""
+    with zipfile.ZipFile(sidecar) as z:
+        infos = z.infolist()
+    assert sum(i.file_size for i in infos) <= c["sidecar_raw_bytes"]
+    assert c["deflate_blocks"] >= len(infos) * c["autosaves"]
+    assert c["deflate_blocks"] >= c["sidecar_raw_bytes"] / npz.BLOCK
+    assert c["deflate_threads"] == npz.threads() >= 1
+
+
+def test_stats_carry_the_sidecar_deflate(disk_scene, monkeypatch,
+                                         tmp_path):
+    """A -r job that autosaves counts the sidecar's raw bytes, the
+    blocks it was deflated in and the deflate pool's width in
+    ``stats.json``'s ``trace``; the sidecar is the zip ``np.load`` reads."""
+    d, _ = disk_scene
+    monkeypatch.chdir(d)
+    monkeypatch.setattr(Reconstructor, "autosave_interval", 40)
+    assert cli.main(["-r", "scene.nvm", "-o", str(tmp_path), "--device",
+                     "cpu"]) == 0
+    stats = json.loads((tmp_path / "stats.json").read_text())
+    c = stats["trace"]["counters"]
+    assert c["autosaves"] >= 2
+    check_sidecar_counters(c, tmp_path / "auto_save.mvs.state.npz")
+    with np.load(tmp_path / "auto_save.mvs.state.npz") as st:
+        n = int(st["count"])
+        assert 40 <= n < stats["live_patches"]
+        assert st["d_img_point"].shape == (n, 4, 2)
 
 
 def test_reconstruction_is_deterministic(disk_scene, monkeypatch, tmp_path):

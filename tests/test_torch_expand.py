@@ -18,6 +18,8 @@
       bar, with the device-time stats the port keeps.
   (e) The four post-filters, exact against JAX on a shared arena, native
       and Python.
+  (f) The JAX engine resumes a sidecar the port wrote mid-expansion, and
+      both engines continue from it to the same arena (the stub refiner).
 """
 
 import numpy as np
@@ -200,6 +202,36 @@ def test_expand_host_logic_is_bit_equal(engines, monkeypatch, tmp_path,
     assert sorted(tst.files) == sorted(jst.files)
     for k in jst.files:
         np.testing.assert_array_equal(tst[k], jst[k], k)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+def test_jax_engine_resumes_the_port_sidecar(engines, monkeypatch, tmp_path,
+                                             native):
+    """The JAX engine's ``load_checkpoint`` resumes the sidecar the port
+    wrote mid-expansion (``np.savez_compressed``'s zip, deflated block by
+    block across the host's cores) to the arena the port reloads from it,
+    and both continue the expansion to the same arena and grid."""
+    sc, jrec, trec, refiner, seeds = engines
+    monkeypatch.setattr(jlc, "refine_batch", stub_jax(refiner))
+    monkeypatch.setattr(tlc, "refine_batch", stub_port(refiner))
+    ck = str(tmp_path / "auto_save.mvs")
+    arm(trec, TArena, native, seeds)
+    monkeypatch.setattr(trec, "autosave_interval", 60, raising=False)
+    trec.expand(max_rounds=4, autosave_path=ck)
+    for rec, cls in ((jrec, JArena), (trec, TArena)):
+        arm(rec, cls, native, seeds)
+        assert rec.load_checkpoint(ck)
+    ta, ja = trec.arena, jrec.arena
+    n = ta.count
+    assert n == ja.count
+    np.testing.assert_array_equal(ta.expanded[:n], ja.expanded[:n])
+    for k in ja.data:
+        np.testing.assert_array_equal(ta.data[k][:n], ja.data[k][:n], k)
+    assert int((~ta.expanded[:n] & ta.alive[:n]).sum()) > 0
+    nj = jrec.expand(max_rounds=8)
+    nt = trec.expand(max_rounds=8)
+    assert nt == nj > n
+    assert_same_state(trec, jrec)
 
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
