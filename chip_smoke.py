@@ -230,20 +230,31 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      on CPU copies of the same inputs, bit-equal, with its device time,
      the twin's host time, ``torch.cumsum`` on the card beside the scans,
      and its bound.
+ 29. K1 past its 32-camera tile on the 312-view hemisphere rig of the
+     ``temple-r`` cell (``benchmark/scenes/hemisphere_object.py`` at
+     640x480, r=15, PSO 15 x 30): against its plain twin with each seed's
+     own views (up to ~110), each row's 33 best-facing cameras and every
+     camera of the rig (phase 2's tolerances); the launches of one
+     expansion-mode refine of 1024 rows (K1 31, K2 1, no other); K1's
+     device time at B=1024, P=15 against the cameras a row sees (8, 32,
+     33, 64, 90, 160), each held to the twin on 64 rows, with its share of
+     the FP32 bound. ``chip_smoke.py --many-views`` runs this phase alone.
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
 18's first -r), ``launches_refine_poses_r`` (phase 19's -r -b),
 ``launches_reoptimize`` (phase 20's -v) and ``launches_dist_r`` (phase
 22's -r --distributed-expansion), ``launches_4k`` (phase 27's -r at
-4K); A's and B's are phase 10's;
+4K), ``launches_many_views`` (phase 29's refine; its table under
+``many_views``); A's and B's are phase 10's;
 ``launches_dist_vp`` of A, B and K2 are rank 0's inside phase 24's
 expansion.
 Each kernel's ``max_abs_err`` is the largest of every check of it,
 ``max_abs_err_r`` that of the checks at phase 16's shapes alone,
 ``max_abs_err_b1`` that of phase 20's checks at B = 1,
 ``max_abs_err_dist_vp`` that of phase 24's check inside the expansion and
-``max_abs_err_4k`` that of phase 27's checks at the 4K run's shapes.
+``max_abs_err_4k`` that of phase 27's checks at the 4K run's shapes,
+``max_abs_err_many_views`` that of phase 29's.
 M's entries (``microbench_a`` .. ``_d``, launches from phase 13's tool
 run) add ``ms_iqr``, ``registers``, ``spill_bytes``, ``smem_bytes``,
 ``grid`` and ``sass_per_step``; their ``library_ms`` is sampling only.
@@ -2131,6 +2142,148 @@ def microbench_library(box):
     return call
 
 
+# phase 29's rig: the Middlebury temple's 312 views at 640x480 on a
+# hemisphere (benchmark/configs/middlebury-temple.json), r = 15, PSO 15 x 30
+MANY_VIEWS = {"width": 640, "height": 480, "cameras": 312, "focal": 1520.0,
+              "seeds": 400, "scene_seed": 11, "config_txt": {}}
+# the cameras a row sees in phase 29's table (rows past the tile from 33)
+MANY_VIEWS_SEEN = (8, 32, 33, 64, 90, 160)
+
+
+def many_views_phase(dev):
+    """29. K1 past its camera tile on the 312-view hemisphere rig: the
+    seeds with their own views (up to ~110), each row's ``CAMERA_TILE``
+    + 1 best-facing cameras, and every camera of the rig, against the
+    plain twin (exact BIG set, 1e-4 relative above 1); the launches of one
+    expansion-mode refine of 1024 rows (K1 1 + 30, K2 1, no other); then
+    K1's device time at B = 1024, P = 15 against the cameras a row sees
+    (its ``MANY_VIEWS_SEEN`` best-facing ones), each held to the twin on
+    64 rows, with the share of the FP32 bound (each sample's operations
+    once). Returns (launches, max |err|, table rows)."""
+    import torch
+    from benchmark.scenes import hemisphere_object as HO
+    from pais_mvs_tpu_torch.config import MvsConfig
+    from pais_mvs_tpu_torch.models import patch as pm
+    from pais_mvs_tpu_torch.models.camera import CameraParams, build_scene
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import fitness as F
+    from pais_mvs_tpu_torch.ops import lifecycle as lc
+    t0 = time.time()
+    sc = HO.render(MANY_VIEWS, 1, dev)
+    params = [CameraParams(file_name=c.name, focal=np.array([c.focal] * 2),
+                           principal=np.array([-1.0, -1.0]),
+                           quaternion=np.asarray(c.quaternion),
+                           center=np.asarray(c.center)) for c in sc.cameras]
+    B, P, T = 1024, 15, 30
+    cfg = MvsConfig(patch_radius=15, particle_num=P, max_iteration=T,
+                    dist_weighting=5.0, batch_size=B)
+    scene = build_scene(params, sc.images, cfg, device=dev)
+    del sc.images
+    pb = lc.prepare_seeds(scene, cfg, pm.from_seeds(
+        sc.seed_points, sc.seed_masks, sc.seed_pixels, device=dev))
+    pb = pm.take(pb, np.arange(B) % pb.capacity)
+    seen = pb.cam_mask.sum(1)
+    log(f"many-view rig: {scene.num_cameras} cameras at "
+        f"{MANY_VIEWS['width']}x{MANY_VIEWS['height']}, "
+        f"{len(sc.seed_points)} seeds seeing {int(seen.min())}-"
+        f"{int(seen.max())} cameras, {int((seen > CF.CAMERA_TILE).sum())} "
+        f"of {B} rows past the {CF.CAMERA_TILE}-camera tile; "
+        f"{time.time() - t0:.1f} s")
+    if int(seen.max()) <= CF.CAMERA_TILE:
+        fail("many-view rig: no row sees more cameras than K1's tile")
+
+    def best_facing(normal, k):
+        """[B, C] masks of each row's k cameras that best face it."""
+        face = -(normal @ scene.rig.optical.T)
+        top = torch.topk(face, k, dim=1).indices
+        return torch.zeros(face.shape, dtype=torch.bool,
+                           device=dev).scatter_(1, top, True)
+
+    # K1 against the plain twin, selftest noise, on 128 rows
+    err = 0.0
+    sub = pm.take(pb, np.arange(128))
+    n = sub.normal()
+    for label, mask in (("own views", sub.cam_mask),
+                        (f"{CF.CAMERA_TILE + 1} best-facing",
+                         best_facing(n, CF.CAMERA_TILE + 1)),
+                        ("every camera", torch.ones_like(sub.cam_mask))):
+        _, ref, lod, ray, pos = selftest_inputs(
+            scene, cfg, sub.replace(cam_mask=mask), 128, 16, 29)
+        err = max(err, check_fitness(f"many-view rig, {label}", scene, cfg,
+                                     ref, mask, lod, ray, pos)[0])
+
+    # the launches of one expansion-mode refine of the B rows
+    gen = torch.Generator(dev).manual_seed(29)
+    torch.cuda.synchronize()
+    CF.reset_launch_counts()
+    res = lc.refine_batch(scene, cfg, pb, 0.005, False, 1, generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(CF.LAUNCHES)
+    if launches != {**dict.fromkeys(CF.LAUNCHES, 0), "fitness": 1 + T,
+                    "sampler": 1}:
+        fail(f"many-view refine launch counts {launches}, expected fitness "
+             f"{1 + T} (1 + {T} PSO evaluations), sampler 1 and no other")
+    if not bool(torch.isfinite(res.batch.center[res.batch.valid]).all()):
+        fail("many-view refine: non-finite centres among accepted patches")
+    log(f"many-view refine (B={B}, P={P}, T={T}): launches {launches}, "
+        f"accepted {int(res.batch.valid.sum())}/{B}")
+
+    # K1's time against the cameras a row sees
+    n = pb.normal()
+    rng = np.random.default_rng(29)
+    rows = []
+    for k in MANY_VIEWS_SEEN:
+        mask = best_facing(n, k)
+        ref = lc.set_reference_camera(scene, n, mask)
+        depth, ray = lc.set_depth_and_ray(scene, pb.center, ref)
+        lod = lc.set_lod(scene, cfg, pb.center, ref)
+        noise = torch.tensor(rng.normal(size=(B, P, 3))
+                             * [0.05, 0.05, 0.001], dtype=torch.float32,
+                             device=dev)
+        pos = torch.stack([pb.normal_sph[:, 0], pb.normal_sph[:, 1], depth],
+                          -1)[:, None, :] + noise
+        H, pt, pv = F.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+        args = (scene.pyramids, cfg, H, pt, ref, mask, lod, pv)
+        got = CF.score_windows(*args)
+        few = tuple(x[:64] if torch.is_tensor(x) else x for x in args)
+        err = max(err, compare_fitness(f"K1 many-view rig, {k} cameras a "
+                                       f"row", got[:64], F.score_windows(
+                                           *few)))
+        ms, host = time_ms(lambda: CF.score_windows(*args), 20)
+        ops = float((pv.sum(1) * (2 * cfg.patch_radius + 1) ** 2
+                     * (mask.sum(1) * K1_OPS_SAMPLE + K1_OPS_PIXEL)).sum())
+        bound = ops / FP32_OPS_PER_S * 1e3
+        row = {"cams_per_row": k, "ms": ms, "host_ms": host,
+               "bound_ms": bound, "roofline_pct": 100.0 * bound / ms,
+               "scored": int((got < 1e20).sum())}
+        log(f"K1 many-view rig, {k} cameras a row: {json.dumps(row)}")
+        rows.append(row)
+    del scene, pb, res
+    torch.cuda.empty_cache()
+    return launches, err, rows
+
+
+def many_views_main():
+    """Phase 29 alone (``chip_smoke.py --many-views``), after the kernels'
+    build; its last line is ``{"ok": true, "many_views": {...}}``."""
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this phase needs a CUDA "
+             "GPU", code=2)
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    CF.build_kernels()
+    launches, err, rows = many_views_phase(torch.device("cuda"))
+    print(json.dumps({"ok": True, "many_views": {
+        "card": card, "launches": launches, "max_abs_err": err,
+        "k1": rows}}), flush=True)
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -3359,6 +3512,10 @@ def main():
     builds, pyr_rows = scene_phase(rsc2, render[0], dev)
     shutil.rmtree(render[0])
 
+    # 29. K1 past its camera tile on the 312-view hemisphere rig
+    mv_launches, err1_mv, mv_rows = many_views_phase(dev)
+    err1 = max(err1, err1_mv)
+
     kernels = [
         {"name": "fused_fitness", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/fitness.cu",
@@ -3371,8 +3528,10 @@ def main():
          "launches_reoptimize": v_launches["fitness"],
          "launches_dist_r": d_launches["fitness"],
          "launches_4k": launches_4k["fitness"],
+         "launches_many_views": mv_launches["fitness"],
          "max_abs_err": err1, "max_abs_err_r": err1_r,
          "max_abs_err_b1": err1_v, "max_abs_err_4k": err1_4k,
+         "max_abs_err_many_views": err1_mv, "many_views": mv_rows,
          "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
@@ -3462,5 +3621,7 @@ if __name__ == "__main__":
         dist_worker(*map(int, sys.argv[2:5]), sys.argv[5])
     elif sys.argv[1:2] == ["--render-4k"]:
         render_4k(sys.argv[2])
+    elif sys.argv[1:2] == ["--many-views"]:
+        many_views_main()
     else:
         main()

@@ -52,6 +52,7 @@ from pais_mvs_tpu_torch.models import patch as patch_mod
 from pais_mvs_tpu_torch.models.camera import CameraParams, Scene, build_scene
 from pais_mvs_tpu_torch.models.patch import PatchBatch
 from pais_mvs_tpu_torch.ops import graphs as graphs_mod
+from pais_mvs_tpu_torch.ops.cuda_fitness import CAMERA_TILE
 from pais_mvs_tpu_torch.ops import lifecycle as lc
 from pais_mvs_tpu_torch.parallel import mesh as mesh_mod
 from pais_mvs_tpu_torch.parallel.sharded import patch_seed, refine_sharded
@@ -137,6 +138,7 @@ class Reconstructor:
             "scene_other_s": scene_s - sum(split.values()),
             "refine_graphs": self.graphs.counts, "refine_host_s": 0.0}
         self._seed_pb: Optional[PatchBatch] = None
+        self._seed_masks: Optional[np.ndarray] = None    # on the host
         # PSO stream of the multi-rank paths, made on first use
         self._patch_gen: Optional[torch.Generator] = None
         # data-parallel refine over the ranks of the mesh's patch axis
@@ -188,6 +190,7 @@ class Reconstructor:
         pb = patch_mod.from_seeds(centers, cam_masks, img_points, colors,
                                   device=self.device)
         self._seed_pb = lc.prepare_seeds(self.scene, self.cfg, pb)
+        self._seed_masks = np.asarray(cam_masks, dtype=bool)
 
     def _rehydrate(self, patches) -> PatchBatch:
         """Rebuild derived patch state from an .mvs checkpoint's
@@ -211,6 +214,7 @@ class Reconstructor:
         """Resume reconstruction from an .mvs checkpoint (the reference's
         -r path for .mvs inputs, TMVS.cpp:87-88)."""
         self._seed_pb = self._rehydrate(patches)
+        self._seed_masks = np.asarray(patches.cam_masks, dtype=bool)
 
     def adopt_loaded_patches(self) -> None:
         """Adopt checkpoint patches as the final set (the -f path,
@@ -259,6 +263,8 @@ class Reconstructor:
             # the runtime filter applies ONCE after the whole loop
             # (mvs.cpp:217); intermediate rounds must not kill seeds that
             # can still recover (e.g. minCorrelation mid-loop)
+            self._count_cams(self._seed_masks if prev_mask is None
+                             else prev_mask)
             out, _ = self._refine_all(out, is_seed=True, rounds=1,
                                       final_filter=False)
             rounds_run += 1
@@ -278,6 +284,15 @@ class Reconstructor:
         self.trace.count("inserted", n)
         self._update_neighbor_radius()
         return n, rounds_run
+
+    def _count_cams(self, masks: np.ndarray) -> None:
+        """Counters of the cameras the rows of a refine enter it with, from
+        their host camera masks [N, C] (no device work): ``scored_cams``
+        sums them, ``k1_tiled_rows`` counts the rows that see more cameras
+        than one K1 block holds (``CAMERA_TILE``)."""
+        n = masks.sum(axis=1)
+        self.trace.count("scored_cams", int(n.sum()))
+        self.trace.count("k1_tiled_rows", int((n > CAMERA_TILE).sum()))
 
     # ------------------------------------------------------------------
     # device batching
@@ -667,6 +682,7 @@ class Reconstructor:
                 masks[ok]
             N = len(centers_k)
             tr.count("candidates", N)
+            self._count_cams(masks_k)
             sph = np.stack([np.arccos(np.clip(normals_k[:, 2], -1, 1)),
                             np.arctan2(normals_k[:, 1], normals_k[:, 0])],
                            -1)

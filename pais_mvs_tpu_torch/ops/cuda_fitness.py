@@ -56,6 +56,9 @@ SOURCES = {"fitness": "fitness.cu", "sampler": "sampler.cu",
            "pyramid": "pyramid.cu"}
 # the dynamic shared memory one block may take on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
+# the cameras one fitness-kernel block holds at once (kTile in
+# csrc/fitness.cu): a row that sees more is scored over tiles of them
+CAMERA_TILE = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source, argument types); the C symbol is pais_<entry>
@@ -176,11 +179,13 @@ def build_kernels(sources=None) -> dict:
 
 
 def fitness_smem_bytes(num_cameras: int, radius: int) -> int:
-    """The shared memory of one block of the fitness kernel: 8 particles'
-    records of each camera (12 floats), one sample per camera and thread
-    (256 threads), each camera's limits and index, and the distance table
-    (as ``fitness_smem_bytes`` in csrc/fitness.cu)."""
-    return (8 * 12 + 256 + 3) * 4 * num_cameras + 4 * (2 * radius + 1) ** 2
+    """The shared memory of one block of the fitness kernel: for each camera
+    of one tile (``min(num_cameras, CAMERA_TILE)``), 8 particles' records
+    (12 floats), one sample per thread (256 threads), its limits and index;
+    and the distance table (as ``fitness_smem_bytes`` in csrc/fitness.cu).
+    """
+    tile = min(num_cameras, CAMERA_TILE)
+    return (8 * 12 + 256 + 3) * 4 * tile + 4 * (2 * radius + 1) ** 2
 
 
 def _launch(entry: str, *args) -> None:
@@ -222,7 +227,13 @@ def score_windows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
 
     H [B, P, C, 3, 3] f32, pt [B, P, 2] f32, ref_cam [B] int32, cam_mask
     [B, C] bool, lod [B] int32, pvalid [B, P] bool, active [B] bool or None
-    -> [B, P] f32 (BIG = rejected; inactive swarms get BIG)."""
+    -> [B, P] f32 (BIG = rejected; inactive swarms get BIG).
+
+    Any number of cameras: a row that sees more than ``CAMERA_TILE`` is
+    scored over tiles of them. The one limit is the window: the distance
+    table and one tile's records and samples must fit one block's shared
+    memory (``fitness_smem_bytes``), so r <= 107 on a rig of 32 cameras or
+    more; a larger radius raises ValueError."""
     if H.device.type == "cpu":
         return F.score_windows(pyrs, cfg, H, pt, ref_cam, cam_mask, lod,
                                pvalid, active)
@@ -231,9 +242,11 @@ def score_windows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
     smem = fitness_smem_bytes(C, r)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
-            f"a rig of {C} cameras at r={r} needs {smem} bytes of shared "
-            f"memory per fitness-kernel block for its per-camera samples and "
-            f"records; one block can take {SMEM_PER_BLOCK}")
+            f"a window of radius {r} needs {smem} bytes of shared memory "
+            f"per fitness-kernel block for its distance table and one tile "
+            f"of {min(C, CAMERA_TILE)} cameras' samples and records; one "
+            f"block can take {SMEM_PER_BLOCK} (r <= 107 on a rig of "
+            f"{CAMERA_TILE} cameras or more)")
     images, dims, yoff, C_atlas, L, Ha, Wa = _atlas_args(pyrs)
     if C_atlas != C:
         raise ValueError(f"H has {C} cameras, the atlas {C_atlas}")

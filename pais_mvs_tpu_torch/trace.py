@@ -45,7 +45,12 @@ The port's spans, from the CLI down (``cli.py``,
   writers               init, seed and exp ``.mvs``, PLY, PSR
 
 and its counters: rounds, parents, candidates, refined_rows (padding
-included), padded_rows, inserted, autosaves, autosave_bytes,
+included), padded_rows, scored_cams (the cameras the seeds and the
+expansion's candidates enter the refine with, summed over their rows from
+the host's masks; the distributed expansion's candidates, made on the
+device, are not counted), k1_tiled_rows (those rows that see more cameras
+than one K1 block holds, ``cuda_fitness.CAMERA_TILE``), inserted,
+autosaves, autosave_bytes,
 sidecar_raw_bytes (the sidecars' ``.npy`` bytes deflated), deflate_blocks
 (the blocks handed to the deflate pool), fetch_bytes, and from
 ``RefineGraphs.counts`` graph_keys_captured, graph_first_runs and

@@ -10,17 +10,24 @@ fixture, so it also runs on a machine with the card and no JAX:
 Tolerances: K1's BIG set exactly, values to 1e-4 (relative above 1): the
 per-pixel terms round alike (the kernels build with --fmad=false) and only
 the window sum's order differs; K1 is checked at every particle-tile
-remainder (P in {1, 7, 16, 30}) and on a 12-camera rig; K2's ok set
+remainder (P in {1, 7, 16, 30}), on a 12-camera rig, and on
+hemisphere rigs of 8, 12, 161 and 312 cameras (``benchmark/scenes/
+hemisphere_object.py``) with rows past K1's camera tile, whose rows
+within the tile are bit-equal to the same rows on a rig of only the
+tile's cameras (the launch of a rig of at most a tile); K2's ok set
 exactly, samples to 1e-5; the view fitness's kernels (view_moments,
 view_deviation): counts and reference planes equal, camera sums and
 deviations to 1e-5 (relative above 1), on camera blocks of 1, 5 and 12;
 M to 1e-4 relative (the kernels sum the particles in the plain version's
 order), and its variants (c) and (d) bit-equal to (a); the refine replayed from its CUDA graph bit-equal to the eager
-refine on the same draws; the scene build's kernels (csrc/pyramid.cu) and
+refine on the same draws (also on the 312-camera rig); a 312-camera
+``-r`` job through the CLI; the scene build's kernels (csrc/pyramid.cu) and
 ``build_scene`` on the card bit-equal to their plain twins.
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -37,6 +44,9 @@ from pais_mvs_tpu_torch.ops.graphs import RefineGraphs
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
 from pais_mvs_tpu_torch.ops import view_fitness as VF
 from pais_mvs_tpu_torch.tools import microbench_kernel as MB
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_many_views import hemisphere_rig  # noqa: E402
 
 BIG = 1e20
 KW = dict(patch_radius=5, max_lod=4, particle_num=8, max_iteration=12,
@@ -106,6 +116,93 @@ def _assert_fitness_match(a, b):
     ok = a < BIG
     assert ok.any()
     np.testing.assert_allclose(b[ok], a[ok], rtol=1e-4, atol=1e-4)
+
+
+def _hemisphere_problem(device, num_cams, P=16):
+    """Seeds of the hemisphere rig of ``num_cams`` cameras at 320x240, each
+    in the views that see it (up to ~30% of the rig), as ``_problem``."""
+    _, sc, params = hemisphere_rig(num_cams, 320, 240, 48, device)
+    cfg = MvsConfig(**KW)
+    scene = build_scene(params, sc.images, cfg, device=device)
+    pb = tlc.prepare_seeds(scene, cfg, tpm.from_seeds(
+        sc.seed_points, sc.seed_masks, sc.seed_pixels, device=device))
+    normal = pb.normal()
+    ref = tlc.set_reference_camera(scene, normal, pb.cam_mask)
+    depth, ray = tlc.set_depth_and_ray(scene, pb.center, ref)
+    lod = tlc.set_lod(scene, cfg, pb.center, ref)
+    return scene, pb, normal, ref, lod, ray, _hypotheses(pb, depth, P)
+
+
+@pytest.fixture(scope="module")
+def hemispheres(cuda):
+    return {C: _hemisphere_problem(cuda, C) for C in (8, 12, 161, 312)}
+
+
+def _with_mask(problem, mask):
+    """``problem`` with every row seeing ``mask`` [B, C] (reference
+    camera and level set again)."""
+    scene, pb, normal, _, _, _, pos = problem
+    pb = pb.replace(cam_mask=mask)
+    cfg = MvsConfig(**KW)
+    ref = tlc.set_reference_camera(scene, normal, mask)
+    _, ray = tlc.set_depth_and_ray(scene, pb.center, ref)
+    lod = tlc.set_lod(scene, cfg, pb.center, ref)
+    return scene, pb, normal, ref, lod, ray, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [6, 15])
+@pytest.mark.parametrize("C", [8, 12, 161, 312])
+@pytest.mark.parametrize("seen", ["seeds", "all"])
+def test_fitness_kernel_many_cameras(hemispheres, C, radius, seen):
+    """K1 against the plain twin on hemisphere rigs: each seed in the
+    views that see it (up to ~90 of 312, past the camera tile), and every
+    row seeing the whole rig (161 and 312 cameras a row, five tiles and
+    more, with the far side's views in frame too)."""
+    problem = hemispheres[C]
+    if seen == "all":
+        pb = problem[1]
+        problem = _with_mask(problem, torch.ones_like(pb.cam_mask))
+    counts = problem[1].cam_mask.sum(1)
+    if C > CF.CAMERA_TILE:
+        assert int(counts.max()) > CF.CAMERA_TILE
+    a, b = _fitness_both(problem, radius)
+    _assert_fitness_match(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [6, 15])
+def test_fitness_kernel_rows_within_tile_are_single_pass(hemispheres,
+                                                         radius):
+    """Rows that see at most a tile of cameras on the 312-camera rig score
+    bit-equal to the same rows on a rig of only those cameras, whose
+    launch (shared memory, one pass) is that of a rig of at most a tile."""
+    scene, pb, normal, _, _, _, pos = hemispheres[312]
+    counts = pb.cam_mask.sum(0)
+    tile = torch.sort(torch.argsort(counts, descending=True)[
+        :CF.CAMERA_TILE]).values
+    keep = torch.zeros_like(pb.cam_mask[0])
+    keep[tile] = True
+    mask = pb.cam_mask & keep
+    rows = mask.sum(1) >= 3
+    problem = _with_mask(hemispheres[312], mask)
+    _, _, _, ref, lod, ray, _ = problem
+    cfg = MvsConfig(**{**KW, "patch_radius": radius,
+                       "dist_weighting": radius / 3.0})
+    H, pt, pv = TF.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+    wide = CF.score_windows(scene.pyramids, cfg, H, pt, ref, mask, lod, pv)
+    p = scene.pyramids
+    sub = dataclasses.replace(
+        p, images=p.images[tile].contiguous(),
+        edges=p.edges[tile].contiguous(), dims=p.dims[tile].contiguous(),
+        rgb=p.rgb[tile], var=p.var[tile])
+    pos_in_tile = torch.searchsorted(tile, ref.long()).to(torch.int32)
+    narrow = CF.score_windows(sub, cfg, H[:, :, tile].contiguous(), pt,
+                              pos_in_tile, mask[:, tile].contiguous(), lod,
+                              pv)
+    assert int(rows.sum()) > 8
+    assert torch.equal(wide[rows], narrow[rows])
+    assert (wide[rows] < BIG).any()
 
 
 @pytest.mark.gpu
@@ -438,14 +535,18 @@ def test_kernel_rejects_what_it_does_not_take(problem):
                           torch.ones((2, 3), dtype=torch.bool,
                                      device=H.device),
                           torch.zeros((2, 3, 121), device=H.device), 5)
-    # the fitness kernel keeps each camera's samples and records in shared
-    # memory: a rig beyond one block's share is refused, never truncated
+    # the fitness kernel keeps one tile of cameras and the window's table
+    # in shared memory: any rig fits, and a window beyond one block's
+    # share is refused, never truncated
     C = CF.SMEM_PER_BLOCK // CF.fitness_smem_bytes(1, 0) + 1
-    assert CF.fitness_smem_bytes(C, 5) > CF.SMEM_PER_BLOCK
+    assert CF.fitness_smem_bytes(C, 107) <= CF.SMEM_PER_BLOCK
+    assert CF.fitness_smem_bytes(C, 108) > CF.SMEM_PER_BLOCK
     Hb = torch.zeros((2, 3, C, 3, 3), device=H.device)
+    big = MvsConfig(**{**KW, "patch_radius": 108})
     with pytest.raises(ValueError, match="shared memory"):
-        CF.score_windows(scene.pyramids, cfg, Hb, pt[:2, None].expand(2, 3, 2),
-                         ref[:2], pb.cam_mask[:2], lod[:2],
+        CF.score_windows(scene.pyramids, big, Hb, pt[:2, None].expand(2, 3, 2),
+                         ref[:2], torch.ones((2, C), dtype=torch.bool,
+                                             device=H.device), lod[:2],
                          torch.ones((2, 3), dtype=torch.bool, device=H.device))
 
 
@@ -477,6 +578,58 @@ def test_refine_graph_replays_the_eager_bits(problem, is_seed, rounds):
                                getattr(want.batch, f.name)), (seed, f.name)
         assert torch.equal(got.iterations, want.iterations), seed
     assert graphs.counts == {"captured": 1, "replayed": 2, "eager": 0}
+
+
+@pytest.mark.gpu
+def test_refine_graph_replays_the_eager_bits_on_312_cameras(hemispheres):
+    """The expansion refine on the 312-camera rig, rows past K1's camera
+    tile: graphed against eager on the same draws, bit-equal."""
+    scene, pb = hemispheres[312][:2]
+    assert int(pb.cam_mask.sum(1).max()) > CF.CAMERA_TILE
+    cfg = MvsConfig(**{**KW, "patch_radius": 15, "dist_weighting": 5.0})
+    graphs = RefineGraphs()
+    for seed in (0, 1):
+        want = tlc.refine_batch(scene, cfg, pb, 0.05, False, 1,
+                                generator=torch.Generator(pb.device)
+                                .manual_seed(seed))
+        got = graphs.refine(scene, cfg, pb, 0.05, False, 1,
+                            generator=torch.Generator(pb.device)
+                            .manual_seed(seed))
+        for f in dataclasses.fields(tpm.PatchBatch):
+            assert torch.equal(getattr(got.batch, f.name),
+                               getattr(want.batch, f.name)), (seed, f.name)
+    assert graphs.counts == {"captured": 1, "replayed": 1, "eager": 0}
+
+
+@pytest.mark.gpu
+def test_cli_reconstructs_a_312_camera_rig(cuda, tmp_path, monkeypatch):
+    """``-r`` of a 312-view rig (the hemisphere at 320x240, r = 6, two
+    expansion rounds) through the CLI on the card: K1 past its camera
+    tile, the refine graphs, and a cloud at the end."""
+    from benchmark import scenes
+    from pais_mvs_tpu_torch import cli
+    from pais_mvs_tpu_torch.engine.reconstructor import Reconstructor
+    from pais_mvs_tpu_torch.io import mvsbin
+    cfg, sc, _ = hemisphere_rig(312, 320, 240, 60, cuda)
+    cfg["config_txt"] = {"patchRadius": 6, "particleNum": 8,
+                         "maxIteration": 10, "distWeighting": 2.0}
+    scenes.write_files(sc, cfg, str(tmp_path))
+    expand = Reconstructor.expand
+    monkeypatch.setattr(Reconstructor, "expand",
+                        lambda rec, max_rounds=10_000, autosave_path=None:
+                        expand(rec, 2, autosave_path))
+    monkeypatch.chdir(tmp_path)
+    CF.reset_launch_counts()
+    assert cli.main(["-r", "scene.nvm", "-o", "out", "--device",
+                     "cuda"]) == 0
+    cloud = mvsbin.read_mvs(str(tmp_path / "out" / "exp.mvs"))
+    assert len(cloud.patches.centers) > len(sc.seed_points)
+    assert CF.LAUNCHES["fitness"] > 0
+    import json
+    stats = json.load(open(tmp_path / "out" / "stats.json"))
+    counters = stats["trace"]["counters"]
+    assert counters["k1_tiled_rows"] > 0
+    assert counters["scored_cams"] > 3 * counters["refined_rows"] // 2
 
 
 @pytest.mark.gpu
