@@ -2146,19 +2146,22 @@ def microbench_library(box):
 # hemisphere (benchmark/configs/middlebury-temple.json), r = 15, PSO 15 x 30
 MANY_VIEWS = {"width": 640, "height": 480, "cameras": 312, "focal": 1520.0,
               "seeds": 400, "scene_seed": 11, "config_txt": {}}
-# the cameras a row sees in phase 29's table (rows past the tile from 33)
-MANY_VIEWS_SEEN = (8, 32, 33, 64, 90, 160)
+# the cameras a row sees in phase 29's table: rows past the tile from 33,
+# and the temple's widest rows (114); the phase adds both sides of a wide
+# block's span (cuda_fitness.CAMERA_SPAN: one pass; one camera more: two)
+MANY_VIEWS_SEEN = (8, 32, 33, 64, 90, 114, 160)
 
 
 def many_views_phase(dev):
     """29. K1 past its camera tile on the 312-view hemisphere rig: the
     seeds with their own views (up to ~110), each row's ``CAMERA_TILE``
-    + 1 best-facing cameras, and every camera of the rig, against the
-    plain twin (exact BIG set, 1e-4 relative above 1); the launches of one
-    expansion-mode refine of 1024 rows (K1 1 + 30, K2 1, no other); then
-    K1's device time at B = 1024, P = 15 against the cameras a row sees
-    (its ``MANY_VIEWS_SEEN`` best-facing ones), each held to the twin on
-    64 rows, with the share of the FP32 bound (each sample's operations
+    + 1 and ``CAMERA_SPAN`` + 1 best-facing cameras, and every camera of
+    the rig, against the plain twin (exact BIG set, 1e-4 relative above
+    1); the launches of one expansion-mode refine of 1024 rows (K1 1 + 30,
+    K2 1, no other); then K1's device time at B = 1024, P = 15 against the
+    cameras a row sees (its ``MANY_VIEWS_SEEN``, ``CAMERA_SPAN`` and
+    ``CAMERA_SPAN`` + 1 best-facing ones), each held to the twin on 64
+    rows, with the share of the FP32 bound (each sample's operations
     once). Returns (launches, max |err|, table rows)."""
     import torch
     from benchmark.scenes import hemisphere_object as HO
@@ -2206,6 +2209,8 @@ def many_views_phase(dev):
     for label, mask in (("own views", sub.cam_mask),
                         (f"{CF.CAMERA_TILE + 1} best-facing",
                          best_facing(n, CF.CAMERA_TILE + 1)),
+                        (f"{CF.CAMERA_SPAN + 1} best-facing",
+                         best_facing(n, CF.CAMERA_SPAN + 1)),
                         ("every camera", torch.ones_like(sub.cam_mask))):
         _, ref, lod, ray, pos = selftest_inputs(
             scene, cfg, sub.replace(cam_mask=mask), 128, 16, 29)
@@ -2232,7 +2237,7 @@ def many_views_phase(dev):
     n = pb.normal()
     rng = np.random.default_rng(29)
     rows = []
-    for k in MANY_VIEWS_SEEN:
+    for k in sorted({*MANY_VIEWS_SEEN, CF.CAMERA_SPAN, CF.CAMERA_SPAN + 1}):
         mask = best_facing(n, k)
         ref = lc.set_reference_camera(scene, n, mask)
         depth, ray = lc.set_depth_and_ray(scene, pb.center, ref)

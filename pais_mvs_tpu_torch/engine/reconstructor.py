@@ -52,7 +52,7 @@ from pais_mvs_tpu_torch.models import patch as patch_mod
 from pais_mvs_tpu_torch.models.camera import CameraParams, Scene, build_scene
 from pais_mvs_tpu_torch.models.patch import PatchBatch
 from pais_mvs_tpu_torch.ops import graphs as graphs_mod
-from pais_mvs_tpu_torch.ops.cuda_fitness import CAMERA_TILE
+from pais_mvs_tpu_torch.ops.cuda_fitness import CAMERA_SPAN, CAMERA_TILE
 from pais_mvs_tpu_torch.ops import lifecycle as lc
 from pais_mvs_tpu_torch.parallel import mesh as mesh_mod
 from pais_mvs_tpu_torch.parallel.sharded import patch_seed, refine_sharded
@@ -289,10 +289,14 @@ class Reconstructor:
         """Counters of the cameras the rows of a refine enter it with, from
         their host camera masks [N, C] (no device work): ``scored_cams``
         sums them, ``k1_tiled_rows`` counts the rows that see more cameras
-        than one K1 block holds (``CAMERA_TILE``)."""
+        than K1's one-pass rig holds (``CAMERA_TILE``), and
+        ``k1_resampled_rows`` those of them that see more than a wide K1
+        block holds (``CAMERA_SPAN``), so that K1 samples part of them
+        twice."""
         n = masks.sum(axis=1)
         self.trace.count("scored_cams", int(n.sum()))
         self.trace.count("k1_tiled_rows", int((n > CAMERA_TILE).sum()))
+        self.trace.count("k1_resampled_rows", int((n > CAMERA_SPAN).sum()))
 
     # ------------------------------------------------------------------
     # device batching

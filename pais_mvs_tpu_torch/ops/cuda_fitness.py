@@ -56,9 +56,14 @@ SOURCES = {"fitness": "fitness.cu", "sampler": "sampler.cu",
            "pyramid": "pyramid.cu"}
 # the dynamic shared memory one block may take on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
-# the cameras one fitness-kernel block holds at once (kTile in
-# csrc/fitness.cu): a row that sees more is scored over tiles of them
+# the widest rig whose fitness-kernel blocks run the one-pass loop for 8
+# particles (kTile in csrc/fitness.cu); a wider rig's blocks run
+# WIDE_WARPS particles and hold CAMERA_SPAN cameras (kWideWarps, kSpan):
+# a row that sees more is scored in two passes, its first cameras sampled
+# twice
 CAMERA_TILE = 32
+CAMERA_SPAN = 72
+WIDE_WARPS = 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source, argument types); the C symbol is pais_<entry>
@@ -180,12 +185,23 @@ def build_kernels(sources=None) -> dict:
 
 def fitness_smem_bytes(num_cameras: int, radius: int) -> int:
     """The shared memory of one block of the fitness kernel: for each camera
-    of one tile (``min(num_cameras, CAMERA_TILE)``), 8 particles' records
-    (12 floats), one sample per thread (256 threads), its limits and index;
-    and the distance table (as ``fitness_smem_bytes`` in csrc/fitness.cu).
-    """
-    tile = min(num_cameras, CAMERA_TILE)
-    return (8 * 12 + 256 + 3) * 4 * tile + 4 * (2 * radius + 1) ** 2
+    it holds (``min(num_cameras, CAMERA_SPAN)``), every particle's record
+    (12 floats) and every thread's sample (8 particles of 32 threads on a
+    rig of at most ``CAMERA_TILE``, ``WIDE_WARPS`` on a wider one), its
+    limits and index; and the distance table (as ``fitness_smem_bytes`` in
+    csrc/fitness.cu)."""
+    warps = 8 if num_cameras <= CAMERA_TILE else WIDE_WARPS
+    held = min(num_cameras, CAMERA_SPAN)
+    return (warps * (12 + 32) + 3) * 4 * held + 4 * (2 * radius + 1) ** 2
+
+
+def fitness_max_radius(num_cameras: int) -> int:
+    """The largest window radius whose fitness-kernel block fits one
+    block's shared memory on a rig of ``num_cameras``."""
+    r = 0
+    while fitness_smem_bytes(num_cameras, r + 1) <= SMEM_PER_BLOCK:
+        r += 1
+    return r
 
 
 def _launch(entry: str, *args) -> None:
@@ -229,11 +245,13 @@ def score_windows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
     [B, C] bool, lod [B] int32, pvalid [B, P] bool, active [B] bool or None
     -> [B, P] f32 (BIG = rejected; inactive swarms get BIG).
 
-    Any number of cameras: a row that sees more than ``CAMERA_TILE`` is
-    scored over tiles of them. The one limit is the window: the distance
-    table and one tile's records and samples must fit one block's shared
-    memory (``fitness_smem_bytes``), so r <= 107 on a rig of 32 cameras or
-    more; a larger radius raises ValueError."""
+    Any number of cameras: a row that sees more than ``CAMERA_SPAN`` is
+    scored in two passes, its first cameras sampled twice. The one limit
+    is the window: the distance table and the records and samples of the
+    cameras a block holds must fit one block's shared memory
+    (``fitness_smem_bytes``), so r <= 107 on a rig of 32 cameras and r <=
+    105 on one of ``CAMERA_SPAN`` or more (``fitness_max_radius``); a
+    larger radius raises ValueError."""
     if H.device.type == "cpu":
         return F.score_windows(pyrs, cfg, H, pt, ref_cam, cam_mask, lod,
                                pvalid, active)
@@ -243,10 +261,10 @@ def score_windows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"a window of radius {r} needs {smem} bytes of shared memory "
-            f"per fitness-kernel block for its distance table and one tile "
-            f"of {min(C, CAMERA_TILE)} cameras' samples and records; one "
-            f"block can take {SMEM_PER_BLOCK} (r <= 107 on a rig of "
-            f"{CAMERA_TILE} cameras or more)")
+            f"per fitness-kernel block for its distance table and the "
+            f"samples and records of {min(C, CAMERA_SPAN)} cameras; one "
+            f"block can take {SMEM_PER_BLOCK} (r <= "
+            f"{fitness_max_radius(C)} on this rig of {C} cameras)")
     images, dims, yoff, C_atlas, L, Ha, Wa = _atlas_args(pyrs)
     if C_atlas != C:
         raise ValueError(f"H has {C} cameras, the atlas {C_atlas}")

@@ -49,8 +49,10 @@ included), padded_rows, scored_cams (the cameras the seeds and the
 expansion's candidates enter the refine with, summed over their rows from
 the host's masks; the distributed expansion's candidates, made on the
 device, are not counted), k1_tiled_rows (those rows that see more cameras
-than one K1 block holds, ``cuda_fitness.CAMERA_TILE``), inserted,
-autosaves, autosave_bytes,
+than K1's one-pass rig holds, ``cuda_fitness.CAMERA_TILE``),
+k1_resampled_rows (those that see more than a wide K1 block holds,
+``cuda_fitness.CAMERA_SPAN``, so that K1 samples part of them twice),
+inserted, autosaves, autosave_bytes,
 sidecar_raw_bytes (the sidecars' ``.npy`` bytes deflated), deflate_blocks
 (the blocks handed to the deflate pool), fetch_bytes, and from
 ``RefineGraphs.counts`` graph_keys_captured, graph_first_runs and

@@ -43,7 +43,8 @@ GRAPH_SPANS = ("refine/draws", "refine/stage", "refine/replay",
                "refine/clone", "refine/first_run", "refine/capture",
                "refine/wait")
 COUNTERS = ("rounds", "parents", "candidates", "refined_rows",
-            "padded_rows", "scored_cams", "k1_tiled_rows", "inserted",
+            "padded_rows", "scored_cams", "k1_tiled_rows",
+            "k1_resampled_rows", "inserted",
             "autosaves", "autosave_bytes",
             "sidecar_raw_bytes", "deflate_blocks", "deflate_threads",
             "fetch_bytes", "graph_keys_captured", "graph_first_runs",

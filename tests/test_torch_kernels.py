@@ -12,7 +12,9 @@ per-pixel terms round alike (the kernels build with --fmad=false) and only
 the window sum's order differs; K1 is checked at every particle-tile
 remainder (P in {1, 7, 16, 30}), on a 12-camera rig, and on
 hemisphere rigs of 8, 12, 161 and 312 cameras (``benchmark/scenes/
-hemisphere_object.py``) with rows past K1's camera tile, whose rows
+hemisphere_object.py``) with rows past K1's camera tile and rows of
+exactly 33, ``CAMERA_SPAN``, ``CAMERA_SPAN`` + 1, ``RESIDENT`` and
+``RESIDENT`` + 1 cameras, whose rows
 within the tile are bit-equal to the same rows on a rig of only the
 tile's cameras (the launch of a rig of at most a tile); K2's ok set
 exactly, samples to 1e-5; the view fitness's kernels (view_moments,
@@ -203,6 +205,32 @@ def test_fitness_kernel_rows_within_tile_are_single_pass(hemispheres,
     assert int(rows.sum()) > 8
     assert torch.equal(wide[rows], narrow[rows])
     assert (wide[rows] < BIG).any()
+
+
+# the widest row whose records all stay in a wide block's shared memory
+# beside the samples of one camera (12 + 32 floats a camera of the span)
+RESIDENT = (44 * CF.CAMERA_SPAN - 32) // 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [6, 15])
+@pytest.mark.parametrize("seen", [CF.CAMERA_TILE + 1, CF.CAMERA_SPAN,
+                                  CF.CAMERA_SPAN + 1, RESIDENT,
+                                  RESIDENT + 1])
+def test_fitness_kernel_rows_at_the_span(hemispheres, seen, radius):
+    """Every row of the 312-camera rig seeing exactly ``seen`` cameras, the
+    ones that best face it: just past the tile and a whole span (one pass),
+    one camera past the span (its records resident, the first camera
+    sampled again), the widest row whose records stay resident (the
+    samples of one camera kept) and one camera more (tiles of records),
+    against the plain twin."""
+    scene, pb, normal = hemispheres[312][:3]
+    top = torch.topk(-(normal @ scene.rig.optical.T), seen, dim=1).indices
+    mask = torch.zeros_like(pb.cam_mask).scatter_(1, top, True)
+    problem = _with_mask(hemispheres[312], mask)
+    assert bool((problem[1].cam_mask.sum(1) == seen).all())
+    a, b = _fitness_both(problem, radius)
+    _assert_fitness_match(a, b)
 
 
 @pytest.mark.gpu
@@ -535,15 +563,16 @@ def test_kernel_rejects_what_it_does_not_take(problem):
                           torch.ones((2, 3), dtype=torch.bool,
                                      device=H.device),
                           torch.zeros((2, 3, 121), device=H.device), 5)
-    # the fitness kernel keeps one tile of cameras and the window's table
-    # in shared memory: any rig fits, and a window beyond one block's
-    # share is refused, never truncated
+    # the fitness kernel keeps at most a span of cameras and the window's
+    # table in shared memory: any rig fits, and a window beyond one block's
+    # share is refused, never truncated, with the largest radius named
     C = CF.SMEM_PER_BLOCK // CF.fitness_smem_bytes(1, 0) + 1
-    assert CF.fitness_smem_bytes(C, 107) <= CF.SMEM_PER_BLOCK
-    assert CF.fitness_smem_bytes(C, 108) > CF.SMEM_PER_BLOCK
+    assert C > CF.CAMERA_SPAN
+    assert CF.fitness_smem_bytes(C, 105) <= CF.SMEM_PER_BLOCK
+    assert CF.fitness_smem_bytes(C, 106) > CF.SMEM_PER_BLOCK
     Hb = torch.zeros((2, 3, C, 3, 3), device=H.device)
-    big = MvsConfig(**{**KW, "patch_radius": 108})
-    with pytest.raises(ValueError, match="shared memory"):
+    big = MvsConfig(**{**KW, "patch_radius": 106})
+    with pytest.raises(ValueError, match="shared memory.*r <= 105"):
         CF.score_windows(scene.pyramids, big, Hb, pt[:2, None].expand(2, 3, 2),
                          ref[:2], torch.ones((2, C), dtype=torch.bool,
                                              device=H.device), lod[:2],

@@ -1,12 +1,13 @@
 """PyTorch port on a rig of many views (the Middlebury temple's hemisphere,
 ``benchmark/scenes/hemisphere_object.py``), on the CPU at a tiny size:
-K1's shared memory follows a tile of cameras, not the rig; the refine's
+K1's shared memory follows the cameras a block holds, not the rig, and
+names the largest radius that fits; the refine's
 scores of seeded patches on a 40-camera rig agree with the benchmark's
 plain float64 reference (``benchmark/reference/photo.py``), and a
 bfloat16 reference does not; the many-view comparison's admissible states
 stay bounded at 312 cameras and hold the written state; the renderer
 keeps the object whole in every frame; the refine's camera counters and
-the two metrics that read them."""
+the two metrics that read them, and the rows K1 samples twice."""
 
 import os
 import re
@@ -68,23 +69,49 @@ def rig(tmp_path_factory):
     return cfg, sc, out, rec
 
 
-@pytest.mark.parametrize("cameras", [8, 161, 312])
+@pytest.mark.parametrize("cameras", [8, 32, 33, 161, 312])
 def test_fitness_smem_follows_the_tile(cameras):
-    """A block holds one tile of cameras: any rig fits at r = 15 (four
-    blocks still resident per SM), and a rig of at most a tile takes what
-    it always took."""
+    """A block holds the cameras of its rig up to ``CAMERA_SPAN``: any rig
+    fits at r = 15, a rig of at most a tile takes what it always took
+    (four blocks of eight particles resident per SM), and a wider one
+    keeps the blocks of ``WIDE_WARPS`` particles resident that the source
+    promises (``kWideBlocks``)."""
     smem = CF.fitness_smem_bytes(cameras, 15)
     assert smem <= CF.SMEM_PER_BLOCK
-    assert 4 * (smem + 1024) <= 228 * 1024
     old = (8 * 12 + 256 + 3) * 4 * cameras + 4 * 31 ** 2
-    tile = min(cameras, CF.CAMERA_TILE)
-    assert smem == (8 * 12 + 256 + 3) * 4 * tile + 4 * 31 ** 2
     if cameras <= CF.CAMERA_TILE:
-        assert smem == old == 15204
+        assert smem == old
+        assert 4 * (smem + 1024) <= 228 * 1024
+    else:
+        held = min(cameras, CF.CAMERA_SPAN)
+        assert smem == (CF.WIDE_WARPS * 44 + 3) * 4 * held + 4 * 31 ** 2
+    if cameras == 8:
+        assert smem == 15204
     src = open(os.path.join(ROOT, "pais_mvs_tpu_torch", "csrc",
                             "fitness.cu")).read()
-    assert re.search(r"constexpr int kTile = (\d+);", src).group(1) == str(
-        CF.CAMERA_TILE)
+    for name, value in (("kTile", CF.CAMERA_TILE),
+                        ("kSpan", CF.CAMERA_SPAN),
+                        ("kWideWarps", CF.WIDE_WARPS)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(
+            1) == str(value)
+    # the wider rig's blocks stay as resident as the source promises
+    blocks = int(re.search(r"constexpr int kWideBlocks = (\d+);",
+                           src).group(1))
+    assert blocks == 4
+    if cameras > CF.CAMERA_TILE:
+        assert blocks * (smem + 1024) <= 228 * 1024
+
+
+def test_fitness_max_radius_names_the_limit():
+    """The largest radius whose block fits, on each side of the tile and
+    the span: r = 107 on a rig of 32 cameras, 113 on one of 33 (four
+    particles a block), 105 on any rig of ``CAMERA_SPAN`` cameras or
+    more."""
+    for cameras, r in ((8, 117), (32, 107), (33, 113), (CF.CAMERA_SPAN, 105),
+                       (CF.CAMERA_SPAN + 1, 105), (312, 105)):
+        assert CF.fitness_max_radius(cameras) == r
+        assert CF.fitness_smem_bytes(cameras, r) <= CF.SMEM_PER_BLOCK
+        assert CF.fitness_smem_bytes(cameras, r + 1) > CF.SMEM_PER_BLOCK
 
 
 def test_refine_agrees_with_reference(rig):
@@ -268,13 +295,25 @@ def test_camera_counters_and_their_metrics(rig):
     assert c["scored_cams"] >= sc.seed_masks.sum()
     assert c["refined_rows"] >= len(sc.seed_points)
     assert 0 <= c["k1_tiled_rows"] <= c["refined_rows"]
+    assert 0 <= c["k1_resampled_rows"] <= c["k1_tiled_rows"]
 
     tr = Trace()
     fake = types.SimpleNamespace(trace=tr)
     masks = np.zeros((3, 80), bool)
     masks[0, :5] = masks[1, :40] = masks[2, :33] = True
     Reconstructor._count_cams(fake, masks)
-    assert tr.counters == {"scored_cams": 78, "k1_tiled_rows": 2}
+    assert tr.counters == {"scored_cams": 78, "k1_tiled_rows": 2,
+                           "k1_resampled_rows": 0}
+    # rows on both sides of the tile and of the span
+    span = CF.CAMERA_SPAN
+    seen = (32, 33, span, span + 1)
+    masks = np.zeros((len(seen), 2 * span), bool)
+    for row, n in zip(masks, seen):
+        row[np.random.default_rng(n).permutation(2 * span)[:n]] = True
+    tr = Trace()
+    Reconstructor._count_cams(types.SimpleNamespace(trace=tr), masks)
+    assert tr.counters == {"scored_cams": sum(seen), "k1_tiled_rows": 3,
+                           "k1_resampled_rows": 1}
 
     def job(counters):
         trace = {"spans": {}, "counters": counters, "rounds": []}
