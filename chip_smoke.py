@@ -281,21 +281,17 @@ import time
 
 import numpy as np
 
+# the card's peaks, K1's operation counts, its roofline bound and the
+# atlas elements a warp's taps read: the benchmark's yardstick
+from benchmark.roofline import (FP32_OPS_PER_S, HBM_BYTES_PER_S,
+                                K1_OPS_PIXEL, K1_OPS_SAMPLE, k1_bound_ms,
+                                touched_atlas_elements)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-FP64_OPS_PER_S = 34e12        # outside the tensor cores
-
-# FP32 operations per (window pixel, visible camera) sample and per window
-# pixel, counted from the kernels' arithmetic: homography 3 rows (6 mul +
-# 6 add) + 2 divisions; fx/fy and 1-fx/1-fy (4); bilinear 8 mul + 3 add;
-# mean 1 add; SAD sub + add (2) -> 32 per K1 sample (K2: the first 29).
-# Per K1 pixel: window coordinates 2, mean/SAD divisions 2, difference
-# weight 4 (mul, div, exp, mul), gradient weight 4 when enabled,
-# foreground mask 1, sums 3.
-K1_OPS_SAMPLE, K1_OPS_PIXEL, K1_OPS_GRAD = 32, 12, 4
+FP64_OPS_PER_S = 34e12        # H100 SXM, outside the tensor cores
+# FP32 operations per (window pixel, visible camera) sample of K2: the
+# first 29 of K1's 32 (benchmark/roofline.py counts them)
 K2_OPS_SAMPLE = 29
 # the view kernels, per (window pixel, active camera) sample: K2's 29, then
 # A's sum (1), B's subtraction, absolute value and sum (3); per window
@@ -441,94 +437,6 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-def touched_atlas_elements(pyrs, H, pt, lod, cam_mask, keep, radius, lo,
-                           hi_margin, rows=2048):
-    """The distinct atlas elements the bilinear taps of a warp must read:
-    only samples inside the margins, of visible cameras, of kept rows.
-    H [N, C, 3, 3], pt [N, 2], lod [N], cam_mask [N, C], keep [N] bool.
-    Returns a bool map over the flattened atlas (what the kernel must move
-    from memory, whatever its padding and whatever the LOD bands hold)."""
-    import torch
-    from pais_mvs_tpu_torch.ops import fitness as F
-    C, Ha, Wa = pyrs.images.shape
-    touched = torch.zeros(C * Ha * Wa, dtype=torch.bool, device=pt.device)
-    offs = torch.as_tensor(F.window_offsets(radius), device=pt.device)
-    cam = torch.arange(C, device=pt.device)
-    for s in range(0, pt.shape[0], rows):
-        sl = slice(s, s + rows)
-        win = pt[sl, None, :] + offs                          # [n, W2, 2]
-        x, y = win[..., 0][..., None], win[..., 1][..., None]
-        Hc = H[sl, None]                                      # [n,1,C,3,3]
-        w = Hc[..., 2, 0] * x + Hc[..., 2, 1] * y + Hc[..., 2, 2]
-        sw = torch.where(w == 0, 1.0, w)
-        u = (Hc[..., 0, 0] * x + Hc[..., 0, 1] * y + Hc[..., 0, 2]) / sw
-        v = (Hc[..., 1, 0] * x + Hc[..., 1, 1] * y + Hc[..., 1, 2]) / sw
-        dims = pyrs.dims[cam, lod[sl, None].long()].float()   # [n, C, 2]
-        hgt, wid = dims[:, None, :, 0], dims[:, None, :, 1]
-        ok = ((u >= lo) & (u < wid - hi_margin) & (v >= lo)
-              & (v < hgt - hi_margin) & (w != 0)
-              & cam_mask[sl, None, :] & keep[sl, None, None])
-        yo = pyrs.yoff[lod[sl].long()][:, None, None]
-        # the kernels' clamps; the margins keep every kept tap in its band
-        x0 = torch.floor(u).clamp(0, Wa - 2).long()
-        y0 = (torch.floor(v).long() + yo).clamp(0, Ha - 2)
-        i00 = (cam * (Ha * Wa) + y0 * Wa + x0)[ok]
-        for d in (0, 1, Wa, Wa + 1):
-            touched[i00 + d] = True
-    return touched
-
-
-def k1_bound_ms(scene, cfg, H, pt, ref, cam_mask, lod, pvalid, active):
-    """K1's roofline bound on these inputs: (ms, "bytes" or "operations",
-    a description). Operations: the FP32 work of the kept particles
-    (valid and in an active swarm). Bytes: the atlas elements their taps
-    read (bilinear taps inside K1's margins, plus the nearest reference
-    pixel of every window pixel in images and, with the gradient weight,
-    in edges), H and pt of the kept particles, the small inputs whole, the
-    output."""
-    import torch
-    from pais_mvs_tpu_torch.ops import fitness as F
-    B, P, C = H.shape[:3]
-    r = cfg.patch_radius
-    W2 = (2 * r + 1) ** 2
-    keep = pvalid & active[:, None]
-    live = keep.sum(1)                                        # [B]
-    ncam = cam_mask.sum(1)
-    ops = float((live * W2 * (ncam * K1_OPS_SAMPLE + K1_OPS_PIXEL
-                              + (K1_OPS_GRAD if cfg.adaptive_gradient_enable
-                                 else 0))).sum())
-    atlas = scene.pyramids.images
-    kept = keep.reshape(-1)
-    img_t = touched_atlas_elements(
-        scene.pyramids, H.reshape(B * P, C, 3, 3), pt.reshape(B * P, 2),
-        lod.repeat_interleave(P), cam_mask.repeat_interleave(P, 0), kept, r,
-        2.0, 3.0)
-    offs = torch.as_tensor(F.window_offsets(r), device=pt.device)
-    win = pt.reshape(B * P, 1, 2)[kept] + offs                 # [n, W2, 2]
-    Ha, Wa = atlas.shape[1:]
-    lk = lod.repeat_interleave(P)[kept].long()[:, None]
-    xi = torch.round(win[..., 0]).to(torch.int32).clamp(0, Wa - 1).long()
-    yi = (torch.round(win[..., 1]).to(torch.int32).long()
-          + scene.pyramids.yoff[lk]).clamp(0, Ha - 1)
-    ridx = (ref.repeat_interleave(P)[kept].long()[:, None] * (Ha * Wa)
-            + yi * Wa + xi).reshape(-1)
-    ref_t = torch.zeros_like(img_t)
-    ref_t[ridx] = True
-    n_img = int((img_t | ref_t).sum())
-    n_edge = int(ref_t.sum()) if cfg.adaptive_gradient_enable else 0
-    n_kept = int(kept.sum())
-    nbytes = float((n_img + n_edge) * atlas.element_size()
-                   + n_kept * (C * 9 + 2) * 4 + pvalid.numel()
-                   + ref.numel() * 4 + lod.numel() * 4 + cam_mask.numel()
-                   + active.numel() + W2 * 4 + B * P * 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations",
-            f"{ops:.3e} FP32 ops, {nbytes:.3e} bytes of which atlas {n_img} "
-            f"image + {n_edge} edge elements of {atlas.numel()}, {n_kept} "
-            f"of {B * P} particles kept")
 
 
 def first_evaluation(scene, cfg, pb, P, gen):
@@ -957,18 +865,12 @@ def device_busy_s(prof):
     ``torch.profiler`` run: the union of its kernel, copy and set
     intervals."""
     from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    from pais_mvs_tpu_torch.trace import merge
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not spans:
         fail("the profiler recorded no device activity")
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return (busy + cur_e - cur_s) / 1e6, len(spans)
+    return sum(e - s for s, e in merge(spans)) / 1e6, len(spans)
 
 
 # phase 18's yardstick: the JAX package's feature seeding on this scene
@@ -2758,20 +2660,20 @@ def main():
     k1 = (scene.pyramids, cfg, H, pt, ref, pb.cam_mask, lod, pvalid, valid)
     k1_ms, k1_host = time_ms(lambda: CF.score_windows(*k1), reps=20)
     k1_plain = wall_ms(lambda: F.score_windows(*k1), reps=3)
-    k1_bound, k1_by, k1_what = k1_bound_ms(scene, *k1[1:])
+    k1_scene = (scene.pyramids, cfg.patch_radius, cfg.adaptive_gradient_enable)
+    k1_bound, k1_by = k1_bound_ms(*k1_scene, *k1[2:])
     log(f"K1 at B={B} P={P} r={cfg.patch_radius}, first evaluation: "
         f"{k1_ms:.4f} ms/launch on the device, {k1_host:.4f} ms host per "
-        f"call, plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}: "
-        f"{k1_what})")
+        f"call, plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by})")
     #    K1 on the inputs of the round's 31st evaluation (phase 5)
     k1l = in_loop[30]
     err1 = max(err1, compare_fitness(
         "K1 in-loop (evaluation 31 of 61) vs plain", CF.score_windows(*k1l),
         torch.where(k1l[-1][:, None], F.score_windows(*k1l), 1e30)))
     k1l_ms, k1l_host = time_ms(lambda: CF.score_windows(*k1l), reps=20)
-    k1l_bound, k1l_by, k1l_what = k1_bound_ms(scene, *k1l[1:])
+    k1l_bound, k1l_by = k1_bound_ms(*k1_scene, *k1l[2:])
     log(f"K1 in-loop: {k1l_ms:.4f} ms/launch on the device, {k1l_host:.4f} "
-        f"ms host per call, bound {k1l_bound:.4f} ms ({k1l_by}: {k1l_what}); "
+        f"ms host per call, bound {k1l_bound:.4f} ms ({k1l_by}); "
         f"x61 per round = {61 * k1_ms:.2f} (first) to {61 * k1l_ms:.2f} "
         f"(in-loop) ms of the {round_ms:.2f} ms round")
     C = scene.num_cameras

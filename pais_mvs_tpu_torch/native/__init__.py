@@ -8,22 +8,20 @@ The shared library is built at first use (``lib()``), never at import:
 ``g++ -O3 -std=c++17 -shared -fPIC`` into ``pais_mvs_tpu_torch/_build/``,
 keyed by a hash of the source and flags, through a per-process temporary
 file and an atomic rename, so concurrent processes never load a
-half-written library. A failed build raises with the compiler's output:
-the engine's pure-Python mirror runs only when a caller asks for it
-(``Reconstructor(use_native=False)``), never in place of a broken build.
+half-written library. A failed build raises with the compiler's output;
+the engine has no other host runtime to fall back to.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
-
-from pais_mvs_tpu_torch.engine.cellgrid import GridCoordsMixin
 
 SRC = Path(__file__).resolve().parent / "runtime.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -118,10 +116,24 @@ def lib():
     return lib
 
 
-class NativeCellGrids(GridCoordsMixin):
-    """Drop-in counterpart of ``engine.cellgrid.CellGrids`` backed by C++.
-    Coordinate math (cell_of / in_map / grid dims) is SHARED with the
-    Python grid via GridCoordsMixin — the bit-parity contract."""
+class NativeCellGrids:
+    """Per-camera cell grids (CellMap, TMVS/mvs/cellmap.{h,cpp}): a
+    ceil(img/cellSize) grid of patch-id buckets per camera, held in C++.
+    The coordinate math (``grid_dims``, ``in_map``, ``cell_of``) is the
+    JAX package's ``engine/cellgrid.py`` convention: int() truncation,
+    which equals floor because registered patches have non-negative
+    in-frame image points (the reference's (int) casts)."""
+
+    @staticmethod
+    def grid_dims(sizes, cell_size: int):
+        return [int(math.ceil(s / cell_size)) for s in sizes]
+
+    def in_map(self, cam: int, cx: int, cy: int) -> bool:
+        return 0 <= cx < self.width[cam] and 0 <= cy < self.height[cam]
+
+    def cell_of(self, img_point):
+        return (int(img_point[0] / self.cell_size),
+                int(img_point[1] / self.cell_size))
 
     def __init__(self, widths, heights, cell_size: int):
         self._lib = lib()
@@ -288,6 +300,8 @@ class NativeCellGrids(GridCoordsMixin):
 
     @staticmethod
     def build(arena, widths, heights, cell_size: int) -> "NativeCellGrids":
+        """MVS::setCellMaps (mvs.cpp:116-133): project every live patch into
+        its visible cameras' grids."""
         g = NativeCellGrids(widths, heights, cell_size)
         for pid in arena.live_ids():
             g.insert_patch(int(pid), arena.data["cam_mask"][pid],

@@ -204,6 +204,14 @@ def fitness_max_radius(num_cameras: int) -> int:
     return r
 
 
+def k1_row_counts(cams):
+    """(tiled, resampled) of rows that see ``cams`` cameras each (an int
+    array): the rows the fitness kernel scores past its one-pass tile
+    (more than ``CAMERA_TILE``), and those of them whose first cameras it
+    samples twice (more than ``CAMERA_SPAN``)."""
+    return int((cams > CAMERA_TILE).sum()), int((cams > CAMERA_SPAN).sum())
+
+
 def _launch(entry: str, *args) -> None:
     if entry not in _LIBS:
         build_kernels([ENTRIES[entry][0]])

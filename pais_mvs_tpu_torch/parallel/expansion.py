@@ -98,9 +98,9 @@ def insert_fixpoint(a_acc, a_vis, a_cm, a_ord, a_st, a_ocell, a_cnt0,
                     a_pc, a_pn, a_cx, a_cy, cnt_vis, C: int, grid_h: int,
                     cap: int, min_correlation: float, nr) -> torch.Tensor:
     """EXACT replicated mirror of the host's serial insert loop (per-
-    candidate live-grid ``_insert_time_cell_filter`` + ``_skip_neighbor_
-    cell`` re-check, in strategy order, cells filling as earlier
-    candidates insert); ``pais_mvs_tpu/parallel/expansion.py:117-215``.
+    candidate live-grid insert-time density + skipNeighborCell re-check,
+    ``NativeCellGrids.batch_insert``, in strategy order, cells filling as
+    earlier candidates insert); ``pais_mvs_tpu/parallel/expansion.py:117-215``.
 
     Inputs are per-candidate rows of the whole round ([SR] unless noted):
     a_acc refine-acceptance, a_vis [SR, C] visible & in-frame per refined

@@ -97,9 +97,9 @@ def test_port_imports_no_jax():
         need = ["pais_mvs_tpu_torch." + m for m in (
             "ops.view_fitness", "parallel.mesh", "parallel.distributed",
             "parallel.sharded", "parallel.expansion",
-            "tools.microbench_kernel", "tools.gpu_4k_run", "engine.cellgrid",
-            "native", "io.nvm", "io.mvsbin", "io.logmanager", "cli",
-            "features.seeding", "ops.bundle", "diagnostics")]
+            "tools.microbench_kernel", "tools.gpu_4k_run",
+            "engine.reconstructor", "native", "io.nvm", "io.mvsbin",
+            "io.logmanager", "cli", "features.seeding", "ops.bundle", "diagnostics")]
         assert all(m in sys.modules for m in need), need
         print("isolated")
     """)

@@ -8,7 +8,8 @@
       correlation and priority). The arenas (every field, ``alive``,
       ``expanded``, the deleted archive) and every grid cell must then be
       equal bit for bit, for all four strategies, pipelined and serial,
-      native and Python; so must the last autosave (.mvs and sidecar).
+      against the JAX engine's native and Python runtimes; so must the
+      last autosave (.mvs and sidecar).
   (b) The real refine (plain twins on the CPU) on a tiny scene: the four
       strategies complete on the surface (tests/test_strategies.py's bar).
   (c) Cloud parity (slow): at tests/test_oracle_cloud_parity.py's bar
@@ -16,8 +17,8 @@
   (d) Pipelined against serial at
       tests/test_engine_e2e.py::test_pipelined_expansion_matches_serial's
       bar, with the device-time stats the port keeps.
-  (e) The four post-filters, exact against JAX on a shared arena, native
-      and Python.
+  (e) The four post-filters, exact against JAX on a shared arena, the
+      JAX engine native and Python.
   (f) The JAX engine resumes a sidecar the port wrote mid-expansion, and
       both engines continue from it to the same arena (the stub refiner).
 """
@@ -146,8 +147,11 @@ def engines():
 
 
 def arm(rec, arena_cls, native, seeds, **cfg_kw):
+    """Re-arm an engine on the seeds; ``native`` picks the JAX engine's
+    host runtime (the port has only the native one)."""
     rec.cfg = rec.cfg.replace(**{**STUB_KW, **cfg_kw})
-    rec.use_native = native
+    if isinstance(rec, JRec):
+        rec.use_native = native
     rec.grids = None
     rec.neighbor_radius = rec.cfg.neighbor_radius
     rec.arena = arena_cls(len(rec.params))

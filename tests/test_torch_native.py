@@ -2,10 +2,9 @@
 and the engine's bookkeeping around it against the JAX package, on the
 same numpy inputs: tests/test_native.py's six parity cases (grid,
 candidate generation, insert-time filter, post-filters, batch insert,
-neighbour counts), each exact, port against JAX and native against the
-Python mirror on both sides. Also: the port's C++ source is the JAX
-package's byte for byte, and a failed build raises instead of falling
-back to Python.
+neighbour counts), each exact, the port's native runtime against the JAX
+package's native runtime and its Python mirror. Also: the port's C++
+source is the JAX package's byte for byte, and a failed build raises.
 """
 
 import numpy as np
@@ -19,18 +18,20 @@ from pais_mvs_tpu.engine.reconstructor import Reconstructor as JRec
 from pais_mvs_tpu_torch import native as tnative
 from pais_mvs_tpu_torch.config import MvsConfig as TCfg
 from pais_mvs_tpu_torch.engine.arena import PatchArena as TArena
-from pais_mvs_tpu_torch.engine.cellgrid import CellGrids as TGrids
 from pais_mvs_tpu_torch.engine.reconstructor import Reconstructor as TRec
 from test_torch_cellgrid import HEIGHTS, WIDTHS, cells_of, fake_arena
 
-# (package name, Reconstructor, arena, Python grid, native module, config)
+# (package name, Reconstructor, arena, Python grid, native module, config);
+# the port has no Python grid
 PKGS = {"jax": (JRec, JArena, JGrids, jnative, JCfg),
-        "port": (TRec, TArena, TGrids, tnative, TCfg)}
-METHODS = ("_ensure_grids", "_delete", "_is_neighbor", "_native_kill",
-           "_skip_neighbor_cell", "_generate_candidates",
-           "_insert_time_cell_filter", "cell_filtering",
+        "port": (TRec, TArena, None, tnative, TCfg)}
+METHODS = ("_ensure_grids", "_delete", "_native_kill",
+           "_generate_candidates", "cell_filtering",
            "visibility_filtering", "neighbor_cell_filtering",
            "neighbor_patch_filtering")
+# the JAX engine's Python mirror of the runtime
+JAX_MIRROR = ("_is_neighbor", "_skip_neighbor_cell",
+              "_insert_time_cell_filter")
 
 
 def engine_stub(pkg, native, arena, cfg_kw, neighbor_radius=0.15):
@@ -44,17 +45,20 @@ def engine_stub(pkg, native, arena, cfg_kw, neighbor_radius=0.15):
     s.cfg = cfg_cls(**cfg_kw)
     s.arena = arena
     s.neighbor_radius = neighbor_radius
-    s.use_native = native
     cls = nat.NativeCellGrids if native else grids_cls
     s.grids = cls.build(arena, WIDTHS, HEIGHTS, s.cfg.cell_size)
     s.np_center = np.linspace(-1, 1, arena.num_cams * 3).reshape(-1, 3)
     s._log = lambda *args, **kw: None
-    for m in METHODS:
+    methods = METHODS
+    if pkg == "jax":
+        s.use_native = native
+        methods += JAX_MIRROR
+    for m in methods:
         setattr(s, m, getattr(rec_cls, m).__get__(s))
     return s
 
 
-VARIANTS = [(pkg, nat) for pkg in PKGS for nat in (False, True)]
+VARIANTS = [("jax", False), ("jax", True), ("port", True)]
 
 
 def test_runtime_source_is_the_jax_packages():
@@ -101,9 +105,11 @@ def test_insert_time_filter_matches_jax():
     for pkg, nat in VARIANTS:
         a = fake_arena(PKGS[pkg][1], n=120)
         s = engine_stub(pkg, nat, a, kw)
+        verdict = (s._insert_time_cell_filter if pkg == "jax" else
+                   lambda cm, ip: s.grids.insert_time_filter(
+                       cm, ip, s.cfg.max_cell_patch_num))
         verdicts[pkg, nat] = [
-            s._insert_time_cell_filter(a.data["cam_mask"][p],
-                                       a.data["img_point"][p])
+            verdict(a.data["cam_mask"][p], a.data["img_point"][p])
             for p in a.live_ids()[:60]]
     want = verdicts["jax", False]
     assert 0 < sum(want) < len(want)
@@ -117,7 +123,7 @@ def test_insert_time_filter_matches_jax():
     ("neighbor_patch_filtering", (1.0,))])
 def test_post_filters_match_jax(fname, args):
     """Kill for kill: the same removed count, alive set, deletion order
-    and surviving grid, port against JAX, native against Python."""
+    and surviving grid, the port against JAX's native and Python paths."""
     kw = dict(cell_size=10, max_cell_patch_num=3, min_cam_num=2)
     res = {}
     for pkg, nat in VARIANTS:
