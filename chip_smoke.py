@@ -76,12 +76,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      launches wait behind a ``torch.cuda._sleep`` that outlasts the host's
      enqueue, so the CUDA events around them bracket device work only;
      ``host_ms`` is the host's cost per wrapper call; ``plain_ms`` is what
-     the plain twin's caller waits, host time included;
+     the plain twin's caller waits, host time included. The geometry
+     kernel (``patch_geometry``) on the round's first and 31st evaluations
+     (B=1024, P=30), bit-equal to its twin, with the same times and its
+     byte bound (``geometry_row``);
  15. ``refine_batch`` in the expansion mode that ``Reconstructor.expand``
      runs (normal bounds narrowed around the parent's, P and T not doubled)
      on the card and on the CPU with the same draws on phase 6's parents
      (phase 6's bars), then the launches of one full-width expansion chunk
-     at bench.py's shape (K1 = 31, K2 = 1, no other) and its time;
+     at bench.py's shape (the geometry kernel and K1 31 each, K2 1, no
+     other) and its time, and the geometry kernel's row on the chunk's
+     first evaluation (P=15);
  16. the port's main path as a user runs it: ``cli.main(["-r", ...])`` in
      this process on the pawn rig's real photograph at 2x (1280x960, five
      cameras, 300 seeds; tools/dist_realistic_2k.py's configuration) from
@@ -100,7 +105,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      them, and 1024 of the rig's seeds prepared (the same render with
      more seeds; its images equal the files'), at P=8 (expansion chunks)
      and P=16 (seed rounds), and with the rows' LOD cycled through every
-     band of the atlas, phases 2-3's tolerances; and the expansion's
+     band of the atlas, phases 2-3's tolerances, and the geometry
+     kernel's row on the seeds repeated to 1024 rows at P=8; and the
+     expansion's
      device-busy share: the same seeds and expansion once more in this
      process under ``torch.profiler`` (CUDA activity only), the union of
      the device's activity intervals over the expansion's wall time;
@@ -217,7 +224,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      against their twins on the run's own scene and configuration
      (``check_r_shapes`` on the scene's 400 seeds at P=15 and 30, and
      with the rows' LOD cycled through every band of the atlas), phases
-     2-3's tolerances.
+     2-3's tolerances, and the geometry kernel's row on the 8-camera rig
+     at B=1024, P=15.
  28. the scene build on the card (``build_scene``: the kernels of
      ``csrc/pyramid.cu``) against the CPU's (their plain twins) from the
      same images: the pawn rig at 2x (phase 16's five 1280x960 images and
@@ -235,10 +243,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      640x480, r=15, PSO 15 x 30): against its plain twin with each seed's
      own views (up to ~110), each row's 33 best-facing cameras and every
      camera of the rig (phase 2's tolerances); the launches of one
-     expansion-mode refine of 1024 rows (K1 31, K2 1, no other); K1's
-     device time at B=1024, P=15 against the cameras a row sees (8, 32,
-     33, 64, 90, 160), each held to the twin on 64 rows, with its share of
-     the FP32 bound. ``chip_smoke.py --many-views`` runs this phase alone.
+     expansion-mode refine of 1024 rows (the geometry kernel and K1 31
+     each, K2 1, no other) and the geometry kernel's row on its first
+     evaluation (312 cameras, B=1024, P=15); K1's device time at B=1024,
+     P=15 against the cameras a row sees (8, 32, 33, 64, 90, 160), each
+     held to the twin on 64 rows, with its share of the FP32 bound.
+     ``chip_smoke.py --many-views`` runs this phase alone.
 In the ``kernels`` line, K1's and K2's ``launches`` are phase 16's (this
 slice's main path), beside ``launches_seed_round`` (phase 5),
 ``launches_expansion_chunk`` (phase 15), ``launches_features_r`` (phase
@@ -255,6 +265,15 @@ Each kernel's ``max_abs_err`` is the largest of every check of it,
 ``max_abs_err_dist_vp`` that of phase 24's check inside the expansion and
 ``max_abs_err_4k`` that of phase 27's checks at the 4K run's shapes,
 ``max_abs_err_many_views`` that of phase 29's.
+Every check of K1 against its twin (``check_fitness``: phases 2, 14,
+16, 20, 27, 29) first holds the geometry kernel to its twin on the same
+inputs, H of every camera, pt and pvalid bit for bit, and scores on that
+geometry. The geometry kernel's entry, ``patch_geometry``, takes its
+launches from the same phases as K1's; ``ms``, ``host_ms``,
+``plain_ms`` and ``bound_ms`` (the H store, B·P·C·36 bytes, plus pt and
+pvalid, at the HBM peak) from phase 14's first evaluation,
+``ms_in_loop`` from its 31st, and ``shapes`` holds every row (phases 14,
+15, 16, 27 and 29); its ``max_abs_err`` is the largest over the rows.
 M's entries (``microbench_a`` .. ``_d``, launches from phase 13's tool
 run) add ``ms_iqr``, ``registers``, ``spill_bytes``, ``smem_bytes``,
 ``grid`` and ``sass_per_step``; their ``library_ms`` is sampling only.
@@ -354,15 +373,17 @@ def pyramid_entries() -> list:
 
 
 def path_launch_gate(label: str, launches: dict,
-                     kernels=("fitness", "sampler")):
+                     kernels=("geometry", "fitness", "sampler")):
     """Fails unless each of ``kernels`` and every kernel of the scene build
-    (the CLI builds its scene on the card) launched at least once, and no
-    other kernel did."""
+    (the CLI builds its scene on the card) launched at least once, no
+    other kernel did, and the geometry kernel ran for every K1 launch."""
     want = set(kernels) | set(pyramid_entries())
     if any(launches[k] for k in launches if k not in want) or \
-            not all(launches[k] for k in want):
+            not all(launches[k] for k in want) or \
+            launches["geometry"] != launches["fitness"]:
         fail(f"{label} launched {launches}: {', '.join(sorted(want))} each "
-             f"at least once and no other kernel expected")
+             f"at least once, geometry as often as fitness, and no other "
+             f"kernel expected")
 
 
 @functools.lru_cache(maxsize=None)
@@ -480,14 +501,66 @@ def selftest_inputs(scene, cfg, pb, n, P, seed):
     return sub, ref, lod, ray, pos
 
 
-def check_fitness(label, scene, cfg, ref, mask, lod, ray, pos, active=None,
-                  no_valid=False):
-    """K1 vs its plain twin on the same inputs (``no_valid``: every
-    particle marked invalid); returns max |err|."""
+def check_geometry(label, scene, cfg, ref, mask, lod, ray, pos):
+    """The refine's geometry kernel (``CF.fitness_geometry``) vs its plain
+    twin on the same inputs: H of every camera, pt and pvalid bit for bit,
+    else it fails. Returns (max |err| over H and pt, the twin's (H, pt,
+    pvalid))."""
     import torch
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.ops import fitness as F
-    H, pt, pvalid = F.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+    args = (scene, cfg, ref, mask, lod, ray, pos)
+    want = F.fitness_geometry(*args)
+    got = CF.fitness_geometry(*args)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().nan_to_num(0.0).max())
+              for g, w in zip(got[:2], want[:2]))
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    for name, g, w in zip(("H", "pt", "pvalid"), got, want):
+        if g.shape != w.shape or not torch.equal(bits(g), bits(w)):
+            n = int((bits(g) != bits(w)).sum()) if g.shape == w.shape \
+                else w.numel()
+            fail(f"geometry kernel {label}: {name} differs from the twin's "
+                 f"in {n} of {w.numel()} entries (max |err| over H and pt "
+                 f"{err:.3g})")
+    return err, want
+
+
+def geometry_row(label, scene, cfg, ref, mask, lod, ray, pos) -> dict:
+    """The geometry kernel held to its twin bit for bit on these inputs
+    (``check_geometry``), then its device time and host time per call
+    (``time_ms``), the twin's time (``wall_ms``) and its byte bound: the
+    H store, B·P·C·36 bytes, pt and pvalid written once at the HBM peak
+    (its arithmetic, some 60 FP32 operations a (particle, camera), is a
+    tenth of that time or less). One row of the ``kernels`` line's
+    ``patch_geometry`` entry."""
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import fitness as F
+    args = (scene, cfg, ref, mask, lod, ray, pos)
+    err, _ = check_geometry(label, *args)
+    ms, host = time_ms(lambda: CF.fitness_geometry(*args), reps=50)
+    plain = wall_ms(lambda: F.fitness_geometry(*args), reps=5)
+    B, P, _ = pos.shape
+    C = scene.num_cameras
+    bound = B * P * (36 * C + 8 + 1) / HBM_BYTES_PER_S * 1e3
+    row = {"shape": label, "C": C, "B": B, "P": P, "max_abs_err": err,
+           "ms": ms, "host_ms": host, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": "bytes", "roofline_pct": 100.0 * bound / ms}
+    log(f"geometry kernel {label}: bit-equal to the twin; {json.dumps(row)}")
+    return row
+
+
+def check_fitness(label, scene, cfg, ref, mask, lod, ray, pos, active=None,
+                  no_valid=False):
+    """K1 vs its plain twin on the same inputs (``no_valid``: every
+    particle marked invalid), on the geometry that the geometry kernel
+    and its twin agree on bit for bit (``check_geometry``); returns max
+    |err|."""
+    import torch
+    from pais_mvs_tpu_torch.ops import cuda_fitness as CF
+    from pais_mvs_tpu_torch.ops import fitness as F
+    H, pt, pvalid = check_geometry(label, scene, cfg, ref, mask, lod, ray,
+                                   pos)[1]
     if no_valid:
         pvalid = torch.zeros_like(pvalid)
     args = (scene.pyramids, cfg, H, pt, ref, mask, lod, pvalid, active)
@@ -813,6 +886,11 @@ def cli_reconstructor(nvm, work, dev):
         os.chdir(here)
 
 
+# the rows of check_r_shapes' geometry-kernel row: the bench workload's
+# batch, the rows of a full-width refine
+GEOMETRY_ROWS = 1024
+
+
 def check_r_shapes(rec, seeds, gen, label="-r shape"):
     """K1 and K2 against their plain twins at ``-r``'s shapes: ``rec``'s
     scene and configuration (the engine's own, built from the CLI's files
@@ -820,7 +898,10 @@ def check_r_shapes(rec, seeds, gen, label="-r shape"):
     image points of a render of the same scene) prepared on that scene,
     at the expansion's P and the seed rounds' 2P; then once more with each
     row's LOD cycled through every band of the atlas (capped at its
-    reference camera's maxLOD). Returns K1's and K2's max |err|."""
+    reference camera's maxLOD); then the geometry kernel's row
+    (``geometry_row``) at the expansion's P on the seeds repeated to
+    ``GEOMETRY_ROWS`` rows. Returns K1's and K2's max |err| and that
+    row."""
     import torch
     from pais_mvs_tpu_torch.models import patch as pm
     from pais_mvs_tpu_torch.ops import lifecycle as lc
@@ -857,7 +938,14 @@ def check_r_shapes(rec, seeds, gen, label="-r shape"):
         f"{rc.max_lod}, the prepared seeds' LOD levels "
         f"{np.bincount(lod.cpu().numpy(), minlength=L)}; K1 max |err| "
         f"{err1:.3g}, K2 {err2:.3g}")
-    return err1, err2
+    P = rc.particle_num
+    rows = pm.take(pb, np.arange(GEOMETRY_ROWS) % n_rows)
+    sub, ref, lod, ray, pos = selftest_inputs(rs, rc, rows, GEOMETRY_ROWS,
+                                              P, P)
+    geo = geometry_row(f"{label} ({rs.num_cameras} cameras, B="
+                       f"{GEOMETRY_ROWS}, P={P})", rs, rc, ref, sub.cam_mask,
+                       lod, ray, pos)
+    return err1, err2, geo
 
 
 def device_busy_s(prof):
@@ -1384,13 +1472,14 @@ def graphs_phase(scene, cfg, pb, nvm, work, exp_path, dev) -> dict:
                                 generator=gen(s))
     held(f"(a) flat seed round (B={pb.capacity}, P={2 * cfg.particle_num}, "
          f"T={2 * T})", flat_e, flat_g,
-         {"fitness": 1 + 2 * T, "sampler": 1})
+         {"geometry": 1 + 2 * T, "fitness": 1 + 2 * T, "sampler": 1})
     chunk_e = lambda s: lc.refine_batch(scene, cfg, pb, 0.005, False, 1,
                                         generator=gen(s))
     chunk_g = lambda s: G.refine(scene, cfg, pb, 0.005, False, 1,
                                  generator=gen(s))
     held(f"(c) expansion chunk (B={pb.capacity}, P={cfg.particle_num}, "
-         f"T={T})", chunk_e, chunk_g, {"fitness": 1 + T, "sampler": 1})
+         f"T={T})", chunk_e, chunk_g, {"geometry": 1 + T, "fitness": 1 + T,
+                                      "sampler": 1})
     init_distributed(f"tcp://localhost:{free_port()}", 0, 1,
                      backend="nccl", device="cuda")
     mesh = make_mesh((1, 1))
@@ -1719,8 +1808,9 @@ def fourk_phase(render, gen):
     its 2.04e-4), the path's kernels (``path_launch_gate``), the cloud
     exactly the recorded one (``FOURK_CLOUD``), no eager refine
     (each key's first run is its capture's). Then K1 and K2 against their
-    twins on the run's own scene and configuration (``check_r_shapes``).
-    Returns (launches, K1's max |err|, K2's)."""
+    twins on the run's own scene and configuration, and the geometry
+    kernel's row (``check_r_shapes``). Returns (launches, K1's max |err|,
+    K2's, the geometry kernel's row)."""
     import torch
     from pais_mvs_tpu_torch.ops import cuda_fitness as CF
     from pais_mvs_tpu_torch.tools import gpu_4k_run as G4
@@ -1777,14 +1867,14 @@ def fourk_phase(render, gen):
     if len(truth.seed_centers) < 256:
         fail(f"4K -r: {len(truth.seed_centers)} seeds, 256 rows wanted "
              f"for the kernel checks")
-    err1, err2 = check_r_shapes(rec, (truth.seed_centers,
-                                      truth.seed_cam_masks,
-                                      truth.seed_img_points), gen,
-                                label="4K -r shape")
+    err1, err2, geo = check_r_shapes(rec, (truth.seed_centers,
+                                           truth.seed_cam_masks,
+                                           truth.seed_img_points), gen,
+                                     label="4K -r shape")
     del rec, keep
     torch.cuda.empty_cache()
     log(f"phase 27 (4K -r): {time.time() - t_phase:.1f} s")
-    return launches, err1, err2
+    return launches, err1, err2, geo
 
 
 # what each scene-build kernel stands in for: no Pallas kernel (the JAX
@@ -2059,12 +2149,15 @@ def many_views_phase(dev):
     seeds with their own views (up to ~110), each row's ``CAMERA_TILE``
     + 1 and ``CAMERA_SPAN`` + 1 best-facing cameras, and every camera of
     the rig, against the plain twin (exact BIG set, 1e-4 relative above
-    1); the launches of one expansion-mode refine of 1024 rows (K1 1 + 30,
-    K2 1, no other); then K1's device time at B = 1024, P = 15 against the
-    cameras a row sees (its ``MANY_VIEWS_SEEN``, ``CAMERA_SPAN`` and
-    ``CAMERA_SPAN`` + 1 best-facing ones), each held to the twin on 64
-    rows, with the share of the FP32 bound (each sample's operations
-    once). Returns (launches, max |err|, table rows)."""
+    1); the launches of one expansion-mode refine of 1024 rows (the
+    geometry kernel and K1 1 + 30 each, K2 1, no other) and the geometry
+    kernel's row (``geometry_row``) on that refine's first evaluation;
+    then K1's device time at B = 1024, P = 15 against the cameras a row
+    sees (its ``MANY_VIEWS_SEEN``, ``CAMERA_SPAN`` and ``CAMERA_SPAN`` + 1
+    best-facing ones), each held to the twin on 64 rows, on geometry the
+    kernel and its twin agree on bit for bit, with the share of the FP32
+    bound (each sample's operations once). Returns (launches, max |err|,
+    table rows, the geometry kernel's row)."""
     import torch
     from benchmark.scenes import hemisphere_object as HO
     from pais_mvs_tpu_torch.config import MvsConfig
@@ -2123,17 +2216,22 @@ def many_views_phase(dev):
     gen = torch.Generator(dev).manual_seed(29)
     torch.cuda.synchronize()
     CF.reset_launch_counts()
-    res = lc.refine_batch(scene, cfg, pb, 0.005, False, 1, generator=gen)
+    with FirstCalls("fitness_geometry") as first:
+        res = lc.refine_batch(scene, cfg, pb, 0.005, False, 1,
+                              generator=gen)
     torch.cuda.synchronize()
     launches = dict(CF.LAUNCHES)
-    if launches != {**dict.fromkeys(CF.LAUNCHES, 0), "fitness": 1 + T,
-                    "sampler": 1}:
-        fail(f"many-view refine launch counts {launches}, expected fitness "
-             f"{1 + T} (1 + {T} PSO evaluations), sampler 1 and no other")
+    if launches != {**dict.fromkeys(CF.LAUNCHES, 0), "geometry": 1 + T,
+                    "fitness": 1 + T, "sampler": 1}:
+        fail(f"many-view refine launch counts {launches}, expected geometry "
+             f"and fitness {1 + T} each (1 + {T} PSO evaluations), sampler "
+             f"1 and no other")
     if not bool(torch.isfinite(res.batch.center[res.batch.valid]).all()):
         fail("many-view refine: non-finite centres among accepted patches")
     log(f"many-view refine (B={B}, P={P}, T={T}): launches {launches}, "
         f"accepted {int(res.batch.valid.sum())}/{B}")
+    geo = geometry_row(f"many-view rig, expansion first evaluation (B={B}, "
+                       f"P={P})", *first.args["fitness_geometry"])
 
     # K1's time against the cameras a row sees
     n = pb.normal()
@@ -2149,7 +2247,8 @@ def many_views_phase(dev):
                              device=dev)
         pos = torch.stack([pb.normal_sph[:, 0], pb.normal_sph[:, 1], depth],
                           -1)[:, None, :] + noise
-        H, pt, pv = F.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+        H, pt, pv = check_geometry(f"many-view rig, {k} cameras a row",
+                                   scene, cfg, ref, mask, lod, ray, pos)[1]
         args = (scene.pyramids, cfg, H, pt, ref, mask, lod, pv)
         got = CF.score_windows(*args)
         few = tuple(x[:64] if torch.is_tensor(x) else x for x in args)
@@ -2165,9 +2264,9 @@ def many_views_phase(dev):
                "scored": int((got < 1e20).sum())}
         log(f"K1 many-view rig, {k} cameras a row: {json.dumps(row)}")
         rows.append(row)
-    del scene, pb, res
+    del scene, pb, res, first
     torch.cuda.empty_cache()
-    return launches, err, rows
+    return launches, err, rows, geo
 
 
 def many_views_main():
@@ -2185,10 +2284,10 @@ def many_views_main():
         text=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
     CF.build_kernels()
-    launches, err, rows = many_views_phase(torch.device("cuda"))
+    launches, err, rows, geo = many_views_phase(torch.device("cuda"))
     print(json.dumps({"ok": True, "many_views": {
         "card": card, "launches": launches, "max_abs_err": err,
-        "k1": rows}}), flush=True)
+        "k1": rows, "geometry": geo}}), flush=True)
 
 
 def main():
@@ -2368,37 +2467,45 @@ def main():
                 c.patch_radius, True)
     del args
 
-    # 5. the main path: one seed round at the bench workload; K1's inputs
-    #    of a mid-round PSO evaluation (the 31st of 61) are kept for phase
-    #    14 by a pass-through around the dispatcher
+    # 5. the main path: one seed round at the bench workload; the geometry
+    #    kernel's and K1's inputs of a mid-round PSO evaluation (the 31st
+    #    of 61) are kept for phase 14 by pass-throughs around their
+    #    dispatchers
     gen = torch.Generator(device=dev).manual_seed(0)
-    in_loop, score_windows = [], CF.score_windows
+    in_loop = {"fitness_geometry": [], "score_windows": []}
+    wrapped = {k: getattr(CF, k) for k in in_loop}
 
-    def capture(*args):
-        if len(in_loop) == 30:
-            in_loop.append(args[:2] + tuple(
-                None if t is None else t.clone() for t in args[2:]))
-        else:
-            in_loop.append(None)
-        return score_windows(*args)
+    def keep_31st(name):
+        def call(*args):
+            if len(in_loop[name]) == 30:
+                in_loop[name].append(args[:2] + tuple(
+                    t.clone() if torch.is_tensor(t) else t
+                    for t in args[2:]))
+            else:
+                in_loop[name].append(None)
+            return wrapped[name](*args)
+        return call
 
     torch.cuda.synchronize()
     CF.reset_launch_counts()
-    CF.score_windows = capture
     t0 = time.time()
     try:
+        for k in in_loop:
+            setattr(CF, k, keep_31st(k))
         res = lc.refine_batch(scene, cfg, pb, 0.005, True, 1, generator=gen)
     finally:
-        CF.score_windows = score_windows
+        for k, fn in wrapped.items():
+            setattr(CF, k, fn)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = dict(CF.LAUNCHES)
     log(f"main path (refine_batch, seed mode, 1 round, B={B}): first run "
         f"{first_s:.2f} s, launches {launches}")
-    if launches != {**dict.fromkeys(CF.LAUNCHES, 0), "fitness": 61,
-                    "sampler": 1}:
-        fail(f"main path launch counts {launches}, expected fitness 61 "
-             f"(1 + 2x30 PSO evaluations), sampler 1 and no other")
+    if launches != {**dict.fromkeys(CF.LAUNCHES, 0), "geometry": 61,
+                    "fitness": 61, "sampler": 1}:
+        fail(f"main path launch counts {launches}, expected geometry and "
+             f"fitness 61 each (1 + 2x30 PSO evaluations), sampler 1 and "
+             f"no other")
     keep = res.batch.valid.cpu().numpy()
     d = sc.surface_distance(res.batch.center.cpu().numpy()[keep])
     med = float(np.median(d)) if keep.any() else float("inf")
@@ -2657,6 +2764,13 @@ def main():
         f"main shape B={B} P={P}", scene, cfg, ref, pb.cam_mask, lod, ray,
         pos, valid)
     err1 = max(err1, err_main)
+    #    the geometry kernel on the same inputs and on those of the round's
+    #    31st evaluation (phase 5)
+    geo_rows = [
+        geometry_row(f"seed round, first evaluation (B={B}, P={P})", scene,
+                     cfg, ref, pb.cam_mask, lod, ray, pos),
+        geometry_row(f"seed round, evaluation 31 of 61 (B={B}, P={P})",
+                     *in_loop["fitness_geometry"][30])]
     k1 = (scene.pyramids, cfg, H, pt, ref, pb.cam_mask, lod, pvalid, valid)
     k1_ms, k1_host = time_ms(lambda: CF.score_windows(*k1), reps=20)
     k1_plain = wall_ms(lambda: F.score_windows(*k1), reps=3)
@@ -2666,7 +2780,7 @@ def main():
         f"{k1_ms:.4f} ms/launch on the device, {k1_host:.4f} ms host per "
         f"call, plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by})")
     #    K1 on the inputs of the round's 31st evaluation (phase 5)
-    k1l = in_loop[30]
+    k1l = in_loop["score_windows"][30]
     err1 = max(err1, compare_fitness(
         "K1 in-loop (evaluation 31 of 61) vs plain", CF.score_windows(*k1l),
         torch.where(k1l[-1][:, None], F.score_windows(*k1l), 1e30)))
@@ -2846,14 +2960,17 @@ def main():
     torch.cuda.synchronize()
     CF.reset_launch_counts()
     t0 = time.time()
-    eres = lc.refine_batch(scene, cfg, pb, 0.005, False, 1, generator=gen)
+    with FirstCalls("fitness_geometry") as first:
+        eres = lc.refine_batch(scene, cfg, pb, 0.005, False, 1,
+                               generator=gen)
     torch.cuda.synchronize()
     echunk_first_s = time.time() - t0
     elaunches = dict(CF.LAUNCHES)
-    if elaunches != {**dict.fromkeys(CF.LAUNCHES, 0), "fitness": 1 + Te,
-                     "sampler": 1}:
-        fail(f"expansion chunk launch counts {elaunches}, expected fitness "
-             f"{1 + Te} (1 + {Te} PSO evaluations), sampler 1 and no other")
+    if elaunches != {**dict.fromkeys(CF.LAUNCHES, 0), "geometry": 1 + Te,
+                     "fitness": 1 + Te, "sampler": 1}:
+        fail(f"expansion chunk launch counts {elaunches}, expected geometry "
+             f"and fitness {1 + Te} each (1 + {Te} PSO evaluations), "
+             f"sampler 1 and no other")
     if not bool(torch.isfinite(eres.batch.center[eres.batch.valid]).all()):
         fail("expansion chunk: non-finite centres among accepted patches")
     echunk_ms, echunk_host, echunk_mem, _ = timed_rounds(
@@ -2864,6 +2981,10 @@ def main():
         f"{echunk_ms:.2f} ms per chunk (CUDA events, mean of {reps}), host "
         f"clock {echunk_host:.2f} ms, peak device memory {echunk_mem:.3f} "
         f"GiB; accepted {int(eres.batch.valid.sum())}/{B}")
+    #     the geometry kernel on the chunk's first evaluation
+    geo_rows.append(geometry_row(
+        f"expansion chunk, first evaluation (B={B}, P={Pe})",
+        *first.args["fitness_geometry"]))
 
     # 16. -r through the port's CLI, in this process, on the pawn rig's
     #     real photograph at 1280x960 (5 cameras, 300 seeds)
@@ -2929,9 +3050,10 @@ def main():
     if not all(np.array_equal(a, b) for a, b in zip(more.images,
                                                     rsc2.images)):
         fail(f"the {B}-seed render's images differ from the CLI's files")
-    err1_r, err2_r = check_r_shapes(rec, (more.seed_centers,
-                                          more.seed_cam_masks,
-                                          more.seed_img_points), gen)
+    err1_r, err2_r, geo = check_r_shapes(rec, (more.seed_centers,
+                                               more.seed_cam_masks,
+                                               more.seed_img_points), gen)
+    geo_rows.append(geo)
     del more
     err1, err2 = max(err1, err1_r), max(err2, err2_r)
 
@@ -3364,8 +3486,11 @@ def main():
         fail(f"vp=5 expansion launched {vp_launches}: A, B and K2 expected "
              f"and no other kernel (K1 at 0)")
     if any(v1_launches[k] for k in v1_launches
-           if k not in ("fitness", "sampler")) or not v1_launches["fitness"]:
-        fail(f"vp=1 expansion launched {v1_launches}: K1 and K2 expected")
+           if k not in ("geometry", "fitness", "sampler")) or \
+            not v1_launches["fitness"] or \
+            v1_launches["geometry"] != v1_launches["fitness"]:
+        fail(f"vp=1 expansion launched {v1_launches}: K1, its geometry "
+             f"kernel as often, and K2 expected")
     if not np.array_equal(r0["seeds"], seeds1):
         fail("vp=5: the ranks' seed stage differs from this process's")
     acc5, acc1 = r0["acc0"], rounds1[0][0]
@@ -3410,7 +3535,8 @@ def main():
 
     # 27. the main path at 4K: gpu_4k_run on the scene rendered since
     #     phase 1, and K1 and K2 against their twins at its shapes
-    launches_4k, err1_4k, err2_4k = fourk_phase(render, gen)
+    launches_4k, err1_4k, err2_4k, geo = fourk_phase(render, gen)
+    geo_rows.append(geo)
     err1, err2 = max(err1, err1_4k), max(err2, err2_4k)
 
     # 28. the scene build on the card against the CPU twins (the pawn rig
@@ -3420,7 +3546,8 @@ def main():
     shutil.rmtree(render[0])
 
     # 29. K1 past its camera tile on the 312-view hemisphere rig
-    mv_launches, err1_mv, mv_rows = many_views_phase(dev)
+    mv_launches, err1_mv, mv_rows, geo = many_views_phase(dev)
+    geo_rows.append(geo)
     err1 = max(err1, err1_mv)
 
     kernels = [
@@ -3442,6 +3569,24 @@ def main():
          "ms": k1_ms, "ms_in_loop": k1l_ms, "host_ms": k1_host,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
+        {"name": "patch_geometry", "route": "cuda",
+         "source": "pais_mvs_tpu_torch/csrc/fitness.cu",
+         "replaces": "no Pallas kernel: the jnp geometry at "
+                     "pais_mvs_tpu/ops/fitness.py:166",
+         "launches": r_launches["geometry"],
+         "launches_seed_round": launches["geometry"],
+         "launches_expansion_chunk": elaunches["geometry"],
+         "launches_features_r": fr_launches["geometry"],
+         "launches_refine_poses_r": b_launches["geometry"],
+         "launches_reoptimize": v_launches["geometry"],
+         "launches_dist_r": d_launches["geometry"],
+         "launches_4k": launches_4k["geometry"],
+         "launches_many_views": mv_launches["geometry"],
+         "max_abs_err": max(g["max_abs_err"] for g in geo_rows),
+         **{k: geo_rows[0][k] for k in ("ms", "host_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+         "ms_in_loop": geo_rows[1]["ms"], "library_ms": None,
+         "shapes": geo_rows},
         {"name": "warped_sampler", "route": "cuda",
          "source": "pais_mvs_tpu_torch/csrc/sampler.cu",
          "replaces": "pais_mvs_tpu/ops/pallas_fitness.py:67",

@@ -609,3 +609,226 @@ extern "C" int pais_fitness(const void* images, const void* edges,
 extern "C" const char* pais_fitness_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// ---------------------------------------------------------------------------
+// The refine's per-particle geometry: patch_geometry_kernel
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the geometry stage of the jnp reference
+// pais_mvs_tpu/ops/fitness.py::patch_fitness (:166-186), which XLA fuses
+// under jit. Its plain PyTorch twin, pais_mvs_tpu_torch/ops/fitness.py::
+// fitness_geometry, runs some 112 ops a PSO step; this is one launch that
+// writes what the twin returns and K1 reads: H [B, P, C, 3, 3] for every
+// camera of the rig (exact identity at the reference camera), pt [B, P, 2]
+// (the reference-window centres at the LOD) and pvalid [B, P] (the normal
+// faces the reference camera, the window lies inside the reference frame,
+// and the plane does not pass through the reference camera's centre
+// unless no other camera is visible).
+//
+// What bounds it: the store of H, 36 bytes a (particle, camera), 172 MB at
+// B = 1024, P = 15, C = 312; the arithmetic a (particle, camera) is some
+// 60 operations and 9 divisions. So: one block for each (row, tile of
+// kGeoCams cameras); the block computes the row's relative poses R_rel,
+// t_rel and the target intrinsics at the row's LOD once a camera (they
+// depend on the reference camera, not the particle), and each particle's
+// n_r and plane distance once (shared memory); then its threads take the
+// (particle, camera) pairs, stage each pair's nine entries in shared
+// memory and store them in address order, so the stores coalesce. Tiles
+// of 32 cameras and 128 threads measured best of six shapes (tiles of 32
+// to 128 cameras, 128 to 512 threads): 0.160 ms at B = 1024, P = 15, C =
+// 312 against 0.186 for 64 x 256, 6.9 us against 9.2 at C = 5 (PERF.md).
+//
+// Bit-equal to the twin on the card: the same operations on the same
+// operands in the twin's order, built with --fmad=false. torch's CUDA sum
+// over a contiguous axis of 3 runs on two lanes (ATen's Reduce.cuh: a block
+// width of last_pow2(3) = 2): lane 0 adds elements 0 and 2 into
+// accumulators that start at +0, lane 1 holds element 1, and one shuffle
+// adds the two, so torch_sum3 is ((x0 + x2) + 0) + (x1 + 0). 1 / x is
+// torch's reciprocal, sin, cos and pow are sinf, cosf and powf.
+
+namespace {
+
+constexpr int kGeoThreads = 128;
+constexpr int kGeoCams = 32;             // cameras of one block's tile
+constexpr int kGeoCam = 16;              // floats of a camera's record
+
+__device__ __forceinline__ float torch_sum3(float x0, float x1, float x2) {
+  return ((x0 + x2) + 0.f) + (x1 + 0.f);
+}
+
+// M @ v for a row-major 3x3 M, each component a torch_sum3 of products
+__device__ __forceinline__ void mv3(const float* M, const float* v,
+                                    float* out) {
+  for (int i = 0; i < 3; ++i)
+    out[i] = torch_sum3(M[3 * i] * v[0], M[3 * i + 1] * v[1],
+                        M[3 * i + 2] * v[2]);
+}
+
+__global__ void __launch_bounds__(kGeoThreads) patch_geometry_kernel(
+    const float* __restrict__ pos, const float* __restrict__ ray,
+    const int* __restrict__ ref_cam, const int* __restrict__ lod,
+    const uint8_t* __restrict__ cam_mask, const float* __restrict__ Rg,
+    const float* __restrict__ Tg, const float* __restrict__ focal,
+    const float* __restrict__ principal, const float* __restrict__ center,
+    const float* __restrict__ optical, const int* __restrict__ dims, int C,
+    int L, int P, float lod_ratio, float radius, float* __restrict__ H,
+    float* __restrict__ pt, uint8_t* __restrict__ pvalid) {
+  __shared__ float s_cam[kGeoCams * kGeoCam];   // R_rel, t_rel, intrinsics
+  __shared__ float s_out[kGeoThreads * 9];      // staged entries of H
+  extern __shared__ float4 s_part[];            // n_r, where(ok, d_r, 1)
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.y * kGeoCams;
+  const int nc = min(kGeoCams, C - c0);
+  const int ref = ref_cam[b];
+  const int l = lod[b];
+  const float s = powf(lod_ratio, (float)l);
+  float Rr[9], Tr[3];
+  for (int k = 0; k < 9; ++k) Rr[k] = Rg[ref * 9 + k];
+  for (int k = 0; k < 3; ++k) Tr[k] = Tg[ref * 3 + k];
+
+  // the cameras of the tile: the relative pose and the target's
+  // intrinsics at the LOD (plane_homography's R_rel, t_rel, fx_t .. cy_t)
+  for (int i = tid; i < nc; i += kGeoThreads) {
+    const int c = c0 + i;
+    float* rec = s_cam + i * kGeoCam;
+    const float* Rt = Rg + c * 9;
+    for (int r = 0; r < 3; ++r)
+      for (int j = 0; j < 3; ++j)
+        rec[3 * r + j] = torch_sum3(Rt[3 * r] * Rr[3 * j],
+                                    Rt[3 * r + 1] * Rr[3 * j + 1],
+                                    Rt[3 * r + 2] * Rr[3 * j + 2]);
+    float RT[3];
+    mv3(rec, Tr, RT);
+    for (int r = 0; r < 3; ++r) rec[9 + r] = Tg[c * 3 + r] - RT[r];
+    rec[12] = s * focal[c * 2];
+    rec[13] = s * focal[c * 2 + 1];
+    rec[14] = s * principal[c * 2];
+    rec[15] = s * principal[c * 2 + 1];
+  }
+
+  // whether a camera other than the reference is visible: if none is, a
+  // degenerate plane leaves the particle valid (every visible camera's
+  // homography is the reference's identity)
+  bool others = false;
+  if (blockIdx.y == 0)
+    for (int c = tid; c < C; c += kGeoThreads)
+      others |= c != ref && cam_mask[(long long)b * C + c] != 0;
+  others = __syncthreads_or(others);
+
+  // the particles: normal, centre, n_r, X_r and d_r; the first camera
+  // tile's block also writes pt and pvalid
+  for (int p = tid; p < P; p += kGeoThreads) {
+    const long long bp = (long long)b * P + p;
+    const float th = pos[bp * 3], ph = pos[bp * 3 + 1],
+                depth = pos[bp * 3 + 2];
+    const float st = sinf(th);
+    const float n[3] = {st * cosf(ph), st * sinf(ph), cosf(th)};
+    float X[3];
+    for (int k = 0; k < 3; ++k) X[k] = ray[b * 3 + k] * depth +
+                                       center[ref * 3 + k];
+    float nr[3], Xr[3];
+    mv3(Rr, n, nr);
+    mv3(Rr, X, Xr);
+    for (int k = 0; k < 3; ++k) Xr[k] = Xr[k] + Tr[k];
+    const float dr = torch_sum3(nr[0] * Xr[0], nr[1] * Xr[1], nr[2] * Xr[2]);
+    const bool ok = fabsf(dr) > (float)1e-12;
+    s_part[p] = make_float4(nr[0], nr[1], nr[2], ok ? dr : 1.f);
+    if (blockIdx.y == 0) {
+      const float* o = optical + ref * 3;
+      const bool facing_bad = torch_sum3(n[0] * o[0], n[1] * o[1],
+                                         n[2] * o[2]) > 0.f;
+      // the projection into the reference camera at the LOD (X_r is its
+      // camera-frame point)
+      const float z = Xr[2];
+      const float sz = z == 0.f ? 1.f : z;
+      const float xn = Xr[0] / sz, yn = Xr[1] / sz;
+      const float u = (focal[ref * 2] * xn + principal[ref * 2]) * s;
+      const float v = (focal[ref * 2 + 1] * yn + principal[ref * 2 + 1]) * s;
+      pt[bp * 2] = u;
+      pt[bp * 2 + 1] = v;
+      const float h = (float)dims[(ref * L + l) * 2];
+      const float w = (float)dims[(ref * L + l) * 2 + 1];
+      const bool in_ref = (u - radius >= 2.f) && (u + radius < w - 3.f) &&
+                          (v - radius >= 2.f) && (v + radius < h - 3.f);
+      pvalid[bp] = !facing_bad && in_ref && (ok || !others);
+    }
+  }
+  __syncthreads();
+
+  // the row's reference intrinsics at the LOD: the inverse of L K_ref
+  const float inv_fx = 1.f / (s * focal[ref * 2]);
+  const float inv_fy = 1.f / (s * focal[ref * 2 + 1]);
+  const float ox = -principal[ref * 2] / focal[ref * 2];
+  const float oy = -principal[ref * 2 + 1] / focal[ref * 2 + 1];
+
+  const int pairs = P * nc;
+  for (int base = 0; base < pairs; base += kGeoThreads) {
+    const int i = base + tid;
+    if (i < pairs) {
+      const int p = i / nc, k = i - p * nc;
+      float* out = s_out + tid * 9;
+      if (c0 + k == ref) {
+        for (int e = 0; e < 9; ++e) out[e] = (e % 4 == 0) ? 1.f : 0.f;
+      } else {
+        const float* rec = s_cam + k * kGeoCam;
+        const float4 q = s_part[p];
+        const float nr[3] = {q.x, q.y, q.z};
+        float M[9];
+        for (int r = 0; r < 3; ++r)
+          for (int j = 0; j < 3; ++j)
+            M[3 * r + j] = rec[3 * r + j] + (rec[9 + r] * nr[j]) / q.w;
+        float KM[9];
+        for (int j = 0; j < 3; ++j) {
+          KM[j] = rec[12] * M[j] + rec[14] * M[6 + j];
+          KM[3 + j] = rec[13] * M[3 + j] + rec[15] * M[6 + j];
+          KM[6 + j] = M[6 + j];
+        }
+        for (int r = 0; r < 3; ++r) {
+          out[3 * r] = KM[3 * r] * inv_fx;
+          out[3 * r + 1] = KM[3 * r + 1] * inv_fy;
+          out[3 * r + 2] = (KM[3 * r] * ox + KM[3 * r + 1] * oy) +
+                           KM[3 * r + 2];
+        }
+      }
+    }
+    __syncthreads();
+    // the staged pairs' entries in address order: a particle's run of the
+    // tile's cameras is contiguous in H
+    const int n9 = min(kGeoThreads, pairs - base) * 9;
+    for (int e = tid; e < n9; e += kGeoThreads) {
+      const int i = base + e / 9;
+      const int p = i / nc, k = i - p * nc;
+      H[(((long long)b * P + p) * C + c0 + k) * 9 + e % 9] = s_out[e];
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// C entry, bound with ctypes. Returns cudaGetLastError() after the launch,
+// or the error of raising the block's shared-memory limit.
+extern "C" int pais_geometry(const float* pos, const float* ray,
+                             const int* ref_cam, const int* lod,
+                             const uint8_t* cam_mask, const float* R,
+                             const float* T, const float* focal,
+                             const float* principal, const float* center,
+                             const float* optical, const int* dims, int C,
+                             int L, int B, int P, float lod_ratio,
+                             int radius, float* H, float* pt,
+                             uint8_t* pvalid, void* stream) {
+  if ((long long)B * P == 0) return 0;
+  const size_t smem = sizeof(float4) * (size_t)P;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        patch_geometry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)B, (unsigned)((C + kGeoCams - 1) / kGeoCams));
+  patch_geometry_kernel<<<grid, kGeoThreads, smem, (cudaStream_t)stream>>>(
+      pos, ray, ref_cam, lod, cam_mask, R, T, focal, principal, center,
+      optical, dims, C, L, P, lod_ratio, (float)radius, H, pt, pvalid);
+  return (int)cudaGetLastError();
+}

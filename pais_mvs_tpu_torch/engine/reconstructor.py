@@ -123,8 +123,18 @@ class Reconstructor:
             trace=tr)
         gloo = mesh is not None and not (mesh.patch.capturable
                                          and mesh.view.capturable)
-        self._refine = (self.graphs.eager_refine(graphs_mod.EAGER_GLOO)
-                        if gloo else self.graphs.refine)
+        refine = (self.graphs.eager_refine(graphs_mod.EAGER_GLOO)
+                  if gloo else self.graphs.refine)
+
+        def counted_refine(*args, **kw):
+            # the job's launches of the geometry kernel and of K1, counted
+            # around each refine (a replay adds what its graph holds)
+            g0, f0 = CF.LAUNCHES["geometry"], CF.LAUNCHES["fitness"]
+            res = refine(*args, **kw)
+            tr.count("geometry_launches", CF.LAUNCHES["geometry"] - g0)
+            tr.count("fitness_launches", CF.LAUNCHES["fitness"] - f0)
+            return res
+        self._refine = counted_refine
         # the scene build's split: host undistortion, uploads, the pyramid
         # kernels (CUDA events; the twins' host time on the CPU) and the
         # rest (the rig, allocations, launches' host side)

@@ -4,6 +4,10 @@ The counterpart of ``pais_mvs_tpu/ops/pallas_fitness.py``:
 
   * ``score_windows`` — the fused photoconsistency fitness (K1,
     ``csrc/fitness.cu``), replacing ``_fused_kernel`` (pallas_fitness.py:552);
+  * ``fitness_geometry`` — the per-particle homographies, window centres
+    and validity that K1 reads (``patch_geometry_kernel`` in
+    ``csrc/fitness.cu``), in one launch in place of the plain twin's torch
+    ops; it replaces no Pallas kernel (XLA fuses the jnp geometry);
   * ``warped_samples`` — the warped-window sampler in its NCC mode (K2,
     ``csrc/sampler.cu``), replacing ``_sample_kernel`` (pallas_fitness.py:67)
     as ``warped_patch_vectors_pallas`` (:867) calls it;
@@ -74,6 +78,10 @@ ENTRIES = {
     "fitness": ("fitness", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
                             _P, _P]),
+    # pos, ray, ref_cam, lod, cam_mask, R, T, focal, principal, center,
+    # optical, dims, C, L, B, P, lod_ratio, radius, H, pt, pvalid, stream
+    "geometry": ("fitness", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _F, _I, _P, _P, _P, _P]),
     # images, dims, yoff, C, L, Ha, Wa, H, pt, lod, cam_mask, B, radius,
     # out, stream
     "sampler": ("sampler", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
@@ -398,12 +406,53 @@ def view_deviation(pyrs, H, pt, lod, act, pvalid, mean, radius: int):
     return out
 
 
+def fitness_geometry(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray,
+                     pos):
+    """The per-particle geometry of ``patch_fitness``: H [B, P, C, 3, 3]
+    f32 for every camera of the rig (identity at the reference camera), pt
+    [B, P, 2] f32 and pvalid [B, P] bool, bit-equal to
+    ``ops.fitness.fitness_geometry`` on the card (its plain twin, which
+    CPU tensors run).
+
+    ref_cam [B] int32, cam_mask [B, C] bool, lod [B] int32, ray [B, 3] f32,
+    pos [B, P, 3] f32."""
+    if pos.device.type == "cpu":
+        return F.fitness_geometry(scene, cfg, ref_cam, cam_mask, lod, ray,
+                                  pos)
+    rig, dims = scene.rig, scene.pyramids.dims
+    B, P, _ = pos.shape
+    C, L = dims.shape[:2]
+    f32 = torch.float32
+    H = torch.empty((B, P, C, 3, 3), dtype=f32, device=pos.device)
+    pt = torch.empty((B, P, 2), dtype=f32, device=pos.device)
+    pvalid = torch.empty((B, P), dtype=torch.bool, device=pos.device)
+    _launch("geometry",
+            _check("pos", pos, f32, (B, P, 3)),
+            _check("ray", ray, f32, (B, 3)),
+            _check("ref_cam", ref_cam, torch.int32, (B,)),
+            _check("lod", lod, torch.int32, (B,)),
+            _check("cam_mask", cam_mask, torch.bool, (B, C)),
+            _check("R", rig.R, f32, (C, 3, 3)),
+            _check("T", rig.T, f32, (C, 3)),
+            _check("focal", rig.focal, f32, (C, 2)),
+            _check("principal", rig.principal, f32, (C, 2)),
+            _check("center", rig.center, f32, (C, 3)),
+            _check("optical", rig.optical, f32, (C, 3)),
+            _check("dims", dims, torch.int32, (C, L, 2)),
+            C, L, B, P, float(cfg.lod_ratio), cfg.patch_radius,
+            H.data_ptr(), pt.data_ptr(), pvalid.data_ptr())
+    return H, pt, pvalid
+
+
 def patch_fitness(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray, pos,
                   active=None):
-    """``ops.fitness.patch_fitness`` with its pixel stage on K1 for CUDA
-    tensors (the plain twin for CPU tensors)."""
-    return F.patch_fitness(scene, cfg, ref_cam, cam_mask, lod, ray, pos,
-                           active, scorer=score_windows)
+    """``ops.fitness.patch_fitness`` with its geometry on one kernel and
+    its pixel stage on K1 for CUDA tensors (the plain twins for CPU
+    tensors)."""
+    H, pt, pvalid = fitness_geometry(scene, cfg, ref_cam, cam_mask, lod,
+                                     ray, pos)
+    return score_windows(scene.pyramids, cfg, H, pt, ref_cam, cam_mask, lod,
+                         pvalid, active)
 
 
 def warped_patch_vectors(scene, cfg: MvsConfig, center, normal, ref_cam,

@@ -9,13 +9,14 @@ tensor program over ``[B, P]`` (patches x particles).
 
 Each scoring function is split where its kernel begins:
   * ``fitness_geometry`` / ``warp_geometry``: per-particle homographies,
-    reference-window centres and validity, shared by both routes;
+    reference-window centres and validity;
   * ``score_windows`` / ``warped_samples`` / ``view_moments`` /
-    ``view_deviation``: the pixel work, the plain twins of the CUDA kernels
-    in ``ops/cuda_fitness.py``. They run for CPU tensors, and
-    ``chip_smoke.py`` holds each kernel against its twin. The view twins
-    are built from the view path's sampling stage, ``warped_samples_view``
-    and ``reference_windows``.
+    ``view_deviation``: the pixel work.
+``fitness_geometry`` and the pixel stages are the plain twins of the CUDA
+kernels in ``ops/cuda_fitness.py``. They run for CPU tensors, and
+``chip_smoke.py`` holds each kernel against its twin. The view twins are
+built from the view path's sampling stage, ``warped_samples_view`` and
+``reference_windows``.
 
 Semantics matched to the reference:
   * candidate = (theta, phi, depth) against a fixed (ref cam, cam set, LOD);
@@ -287,7 +288,7 @@ def _score_rows(pyrs, cfg: MvsConfig, H, pt, ref_cam, cam_mask, lod,
 
 
 def patch_fitness(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray, pos,
-                  active=None, scorer=score_windows):
+                  active=None):
     """Score candidate hypotheses.
 
     Args:
@@ -297,15 +298,13 @@ def patch_fitness(scene, cfg: MvsConfig, ref_cam, cam_mask, lod, ray, pos,
       pos: [B, P, 3] (theta, phi, depth) hypotheses.
       active: [B] bool or None — swarms whose result is used (a kernel
         may return BIG for the others).
-      scorer: the pixel stage (``score_windows`` here; the dispatching
-        wrapper in ``ops/cuda_fitness.py`` on the engine's path).
 
     Returns: [B, P] f32 fitness (lower better; BIG = rejected).
     """
     H, pt, pvalid = fitness_geometry(scene, cfg, ref_cam, cam_mask, lod,
                                      ray, pos)
-    return scorer(scene.pyramids, cfg, H, pt, ref_cam, cam_mask, lod,
-                  pvalid, active)
+    return score_windows(scene.pyramids, cfg, H, pt, ref_cam, cam_mask, lod,
+                         pvalid, active)
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,13 @@ k1_resampled_rows (those that see more than a wide K1 block holds,
 ``cuda_fitness.CAMERA_SPAN``, so that K1 samples part of them twice),
 inserted, autosaves, autosave_bytes,
 sidecar_raw_bytes (the sidecars' ``.npy`` bytes deflated), deflate_blocks
-(the blocks handed to the deflate pool), fetch_bytes, and from
+(the blocks handed to the deflate pool), fetch_bytes, from
 ``RefineGraphs.counts`` graph_keys_captured, graph_first_runs and
-graph_replays; deflate_threads (the deflate pool's width) is set, not
+graph_replays, geometry_launches and fitness_launches (the launches of
+the refine's geometry kernel and of K1, ``cuda_fitness.LAUNCHES`` counted
+around each of the job's refines, graph replays included: equal on a job
+whose fitness runs on the card, every K1 call's geometry ran on the
+kernel; 0 on the CPU); deflate_threads (the deflate pool's width) is set, not
 summed (``Trace.set``).
 """
 

@@ -48,7 +48,7 @@ COUNTERS = ("rounds", "parents", "candidates", "refined_rows",
             "autosaves", "autosave_bytes",
             "sidecar_raw_bytes", "deflate_blocks", "deflate_threads",
             "fetch_bytes", "graph_keys_captured", "graph_first_runs",
-            "graph_replays")
+            "graph_replays", "geometry_launches", "fitness_launches")
 OLD_KEYS = ("scene_build_s", "scene_undistort_s", "scene_upload_s",
             "scene_kernel_s", "scene_other_s", "refine_graphs",
             "refine_host_s", "seed_refine_s", "seed_rounds",
@@ -149,6 +149,8 @@ def check_job_trace(stats, d):
     assert set(JOB_SPANS) <= set(sp) and set(COUNTERS) == set(c)
     assert not set(GRAPH_SPANS) & set(sp)       # the CPU refines eagerly
     assert c["graph_keys_captured"] == c["graph_first_runs"] == 0
+    # ... and runs the plain twins: no geometry kernel, no K1
+    assert c["geometry_launches"] == c["fitness_launches"] == 0
     # the root's self time and its children's totals make the job
     kids = ("scene/decode", "scene/build", "seeds/load", "seeds", "expand",
             "writers")

@@ -152,17 +152,22 @@ def test_patch_fitness_matches_jnp_twelve_cameras(problem12, noise_seed):
 
 
 def test_dispatcher_runs_plain_twin_on_cpu(problem):
-    """CPU tensors go to the plain twin: same values, no kernel launch."""
+    """CPU tensors go to the plain twins, the geometry's and K1's: same
+    values, no kernel launch."""
     _, tscene, h = problem
     _, tcfg = _cfgs()
     t = {k: torch.as_tensor(v) for k, v in h.items()}
+    args = (tscene, tcfg, t["ref_cam"], t["cam_mask"], t["lod"], t["ray"],
+            t["pos"])
     before = dict(CF.LAUNCHES)
     act = torch.arange(t["pos"].shape[0]) % 2 == 0
-    a = TF.patch_fitness(tscene, tcfg, t["ref_cam"], t["cam_mask"], t["lod"],
-                         t["ray"], t["pos"], active=act)
-    b = CF.patch_fitness(tscene, tcfg, t["ref_cam"], t["cam_mask"], t["lod"],
-                         t["ray"], t["pos"], active=act)
+    a = TF.patch_fitness(*args, active=act)
+    b = CF.patch_fitness(*args, active=act)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+    want = TF.fitness_geometry(*args)
+    got = CF.fitness_geometry(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert want[2].any()
     assert CF.LAUNCHES == before
 
 

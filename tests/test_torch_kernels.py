@@ -21,8 +21,15 @@ exactly, samples to 1e-5; the view fitness's kernels (view_moments,
 view_deviation): counts and reference planes equal, camera sums and
 deviations to 1e-5 (relative above 1), on camera blocks of 1, 5 and 12;
 M to 1e-4 relative (the kernels sum the particles in the plain version's
-order), and its variants (c) and (d) bit-equal to (a); the refine replayed from its CUDA graph bit-equal to the eager
-refine on the same draws (also on the 312-camera rig); a 312-camera
+order), and its variants (c) and (d) bit-equal to (a); the refine's
+geometry kernel bit-equal to its plain twin (H of every camera, pt,
+pvalid: the same operations in the same order, torch's sum of three
+included) on the 5-, 12-, 161- and 312-camera rigs at P in {1, 7, 15,
+30} and on particles facing away, windows off the frame and planes
+through the reference camera, one launch a call; the refine replayed
+from its CUDA graph bit-equal to the eager refine on the same draws,
+the geometry kernel launched as often as K1 (also on the 312-camera
+rig); a 312-camera
 ``-r`` job through the CLI; the scene build's kernels (csrc/pyramid.cu) and
 ``build_scene`` on the card bit-equal to their plain twins.
 """
@@ -42,6 +49,7 @@ from pais_mvs_tpu_torch.models import patch as tpm
 from pais_mvs_tpu_torch.models.camera import build_scene
 from pais_mvs_tpu_torch.ops import cuda_fitness as CF
 from pais_mvs_tpu_torch.ops import fitness as TF
+from pais_mvs_tpu_torch.ops import geometry as geom
 from pais_mvs_tpu_torch.ops.graphs import RefineGraphs
 from pais_mvs_tpu_torch.ops import lifecycle as tlc
 from pais_mvs_tpu_torch.ops import view_fitness as VF
@@ -285,6 +293,111 @@ def test_fitness_kernel_dead_batches(problem):
                          pvalid=torch.zeros((B, P), dtype=torch.bool,
                                             device=dev))
     assert np.all(b >= BIG)
+
+
+def _rig_problem(request, rig):
+    """The 5- and 12-camera synthetic rigs, or a hemisphere rig."""
+    if rig in (5, 12):
+        return request.getfixturevalue("problem" if rig == 5
+                                       else "problem12")
+    return request.getfixturevalue("hemispheres")[rig]
+
+
+def _bits(t):
+    """A tensor's bits: a float's as int32, so that NaNs and signed zeros
+    compare too."""
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def _geometry_matches(scene, cfg, ref, mask, lod, ray, pos):
+    """The geometry kernel (one launch) against its plain twin on the
+    card, every bit of H, pt and pvalid; returns the twin's."""
+    before = dict(CF.LAUNCHES)
+    got = CF.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+    assert CF.LAUNCHES == {**before, "geometry": before["geometry"] + 1}
+    want = TF.fitness_geometry(scene, cfg, ref, mask, lod, ray, pos)
+    for name, g, w in zip(("H", "pt", "pvalid"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(_bits(g), _bits(w)), name
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 7, 15, 30])
+@pytest.mark.parametrize("rig", [5, 12, 161, 312])
+def test_geometry_kernel_matches_plain(request, rig, P):
+    """H for every camera of the rig, pt and pvalid bit-equal to the plain
+    twin's, at one particle, a few, the expansion's 15 and the seeds' 30;
+    ``patch_fitness`` launches the kernel once and K1 once, and scores
+    what K1 scores on the twin's geometry."""
+    scene, pb, _, ref, lod, ray, _ = _rig_problem(request, rig)
+    depth, _ = tlc.set_depth_and_ray(scene, pb.center, ref)
+    pos = _hypotheses(pb, depth, P, seed=P)
+    cfg = MvsConfig(**{**KW, "patch_radius": 15, "dist_weighting": 5.0})
+    H, pt, pv = _geometry_matches(scene, cfg, ref, pb.cam_mask, lod, ray,
+                                  pos)
+    assert H.shape[2] == rig and pv.any()
+    before = dict(CF.LAUNCHES)
+    fit = CF.patch_fitness(scene, cfg, ref, pb.cam_mask, lod, ray, pos)
+    assert CF.LAUNCHES == {**before, "geometry": before["geometry"] + 1,
+                           "fitness": before["fitness"] + 1}
+    assert torch.equal(fit, CF.score_windows(scene.pyramids, cfg, H, pt, ref,
+                                             pb.cam_mask, lod, pv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rig", [5, 12, 161, 312])
+def test_geometry_kernel_edge_cases(request, rig):
+    """Bit-equal to the twin on rows (by row mod 5) of particles facing
+    away from the reference camera (0), of windows outside the reference
+    frame (1), of planes through the reference camera's centre, where no
+    homography is defined, with other cameras visible (2) and with the
+    reference camera alone (4), and of the reference camera alone (3).
+    Camera 0 is moved to the origin for rows 2 and 4, whose particles
+    have depth 0."""
+    scene, pb, _, ref, lod, ray, _ = _rig_problem(request, rig)
+    rig_ = scene.rig
+    center, T = rig_.center.clone(), rig_.T.clone()
+    center[0] = 0.0
+    T[0] = 0.0
+    scene = dataclasses.replace(
+        scene, rig=dataclasses.replace(rig_, center=center, T=T))
+    B, P = pb.capacity, 15
+    depth, _ = tlc.set_depth_and_ray(scene, pb.center, ref)
+    pos = _hypotheses(pb, depth, P, seed=rig)
+    noise = pos[..., :2] - pb.normal_sph[:, None]
+    case = torch.arange(B, device=pos.device) % 5
+    ref, lod, ray = ref.clone(), lod.clone(), ray.clone()
+    mask = pb.cam_mask.clone()
+    # 0: normals along the reference camera's optical axis
+    away = geom.normal_to_spherical(rig_.optical[ref])
+    pos[..., :2] = torch.where((case == 0)[:, None, None],
+                               away[:, None] + noise, pos[..., :2])
+    # 1: the reference ray through pixel (-100, -100)
+    off = geom.pixel_to_world_dir(torch.full((B, 2), -100.0,
+                                             device=pos.device),
+                                  rig_.R[ref], rig_.center[ref],
+                                  rig_.focal[ref], rig_.principal[ref])
+    ray = torch.where((case == 1)[:, None], off, ray)
+    # 2, 4: camera 0 as the reference, particles at its centre, facing it
+    deg = (case == 2) | (case == 4)
+    ref = torch.where(deg, 0, ref).to(torch.int32)
+    lod = torch.where(deg, 0, lod).to(torch.int32)
+    mask[case == 2, 0] = True
+    toward = geom.normal_to_spherical(-rig_.optical[0])
+    pos[..., :2] = torch.where(deg[:, None, None], toward + noise,
+                               pos[..., :2])
+    pos[..., 2] = torch.where(deg[:, None], 0.0, pos[..., 2])
+    # 3, 4: the reference camera alone
+    alone = (case == 3) | (case == 4)
+    one = torch.arange(rig, device=pos.device) == ref[:, None].long()
+    mask = torch.where(alone[:, None], one, mask)
+    cfg = MvsConfig(**{**KW, "patch_radius": 5})
+    _, _, pv = _geometry_matches(scene, cfg, ref, mask, lod, ray,
+                                 pos.contiguous())
+    assert not pv[case == 0].any() and not pv[case == 1].any()
+    assert not pv[case == 2].any() and pv[case == 4].all()
+    assert pv[case == 3].any()
 
 
 @pytest.mark.gpu
@@ -597,6 +710,7 @@ def test_refine_graph_replays_the_eager_bits(problem, is_seed, rounds):
                                 generator=torch.Generator(pb.device)
                                 .manual_seed(seed))
         eager = dict(CF.LAUNCHES)
+        assert eager["geometry"] == eager["fitness"] > 0
         CF.reset_launch_counts()
         got = graphs.refine(scene, cfg, pb, 0.005, is_seed, rounds,
                             generator=torch.Generator(pb.device)
@@ -659,6 +773,8 @@ def test_cli_reconstructs_a_312_camera_rig(cuda, tmp_path, monkeypatch):
     counters = stats["trace"]["counters"]
     assert counters["k1_tiled_rows"] > 0
     assert counters["scored_cams"] > 3 * counters["refined_rows"] // 2
+    assert counters["geometry_launches"] == counters["fitness_launches"] \
+        == CF.LAUNCHES["fitness"]
 
 
 @pytest.mark.gpu

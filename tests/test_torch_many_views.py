@@ -23,7 +23,8 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from benchmark import scenes  # noqa: E402
-from benchmark.metrics import cams_per_row, k1_tiled_share  # noqa: E402
+from benchmark.metrics import (cams_per_row, k1_device_s,  # noqa: E402
+                               k1_tiled_share)
 from benchmark.reference import check_many_views as CM  # noqa: E402
 from benchmark.reference.photo import RefScene, engine_params  # noqa: E402
 from benchmark.scenes import hemisphere_object as HO  # noqa: E402
@@ -100,6 +101,32 @@ def test_fitness_smem_follows_the_tile(cameras):
     assert blocks == 4
     if cameras > CF.CAMERA_TILE:
         assert blocks * (smem + 1024) <= 228 * 1024
+
+
+def test_only_k1_kernels_are_named_fitness_kernel():
+    """``k1_device_s`` sums the profiler's kernels whose names hold
+    ``fitness_kernel``: of every ``__global__`` kernel in the port's
+    sources only K1's do, so the refine's geometry kernel, which runs
+    beside K1 in every PSO step, is not billed to K1."""
+    csrc = os.path.join(ROOT, "pais_mvs_tpu_torch", "csrc")
+    kernels = {}
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            src = open(os.path.join(csrc, f)).read()
+            for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                   r"\([^()]*\)\s*)?(\w+)\s*\(", src):
+                kernels[name] = f
+    assert kernels["patch_geometry_kernel"] == "fitness.cu"
+    assert {k: f for k, f in kernels.items() if "fitness_kernel" in k} == \
+        {"fitness_kernel": "fitness.cu"}
+    # as the profiler names them: K1's two instances and the rest
+    names = ["void (anonymous namespace)::fitness_kernel<true>(int)",
+             "void (anonymous namespace)::fitness_kernel<false>(int)"] + [
+        f"void (anonymous namespace)::{k}(int)" for k in kernels
+        if k != "fitness_kernel"]
+    run = types.SimpleNamespace(profile={"kernel_s": dict.fromkeys(names,
+                                                                   1.0)})
+    assert k1_device_s.read(run) == 2.0
 
 
 def test_fitness_max_radius_names_the_limit():

@@ -154,6 +154,8 @@ def test_card_job_records_the_graph_steps(tmp_path, monkeypatch):
         == sp["refine/first_run"]["n"] == sp["refine/capture"]["n"] > 0
     assert c["graph_replays"] == stats["refine_graphs"]["replayed"] \
         == sp["refine/replay"]["n"] == sp["refine/stage"]["n"]
+    # every K1 launch's geometry ran on the geometry kernel, replays too
+    assert c["geometry_launches"] == c["fitness_launches"] > 0
     assert stats["refine_graph_capture_s"] == round(
         sp["refine/capture"]["total_s"], 3)
     rows = stats["trace"]["rounds"]
