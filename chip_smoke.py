@@ -124,7 +124,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with an NVM written without points (feature-seeded): exp.mvs
      bit-equal across the two runs, and phase 16's ``-r`` once more,
      bit-equal to phase 16's exp.mvs; phase 16's gates (accepted > 40%,
-     the cloud >= 20x, median < 2.5e-3), the path's kernels;
+     the cloud >= 20x, median < 2.5e-3), the path's kernels; the
+     seeding's counters in its stats.json: ``feature_seeds`` the seeds
+     returned, ``pairs_matched`` the five cameras' 10 pairs;
  19. ``bundle_adjust`` on the rig's 300 tracks with cameras 1-4 perturbed
      (numpy seed 0: rotation N(0, 0.005), centre N(0, 0.01)) on the card
      and on the CPU: the start of the RMS history to 1e-5 relative, the
@@ -3200,6 +3202,18 @@ def main():
     if missing or n_fs != n_feat:
         fail(f"-r nopts.nvm: artifacts missing {missing}, {n_fs} seeds "
              f"(generate_seed_patches: {n_feat})")
+    # the seeding's counters (features/seeding.py) against what it returned
+    fcount = fst["trace"]["counters"]
+    log(f"-r nopts.nvm seeding counters: "
+        + ", ".join(f"{k} {fcount.get(k)}" for k in (
+            "keypoints", "pairs_matched", "pairs_kept", "pair_matches",
+            "tracks", "feature_seeds")))
+    if fcount.get("feature_seeds") != n_fs or \
+            fcount.get("pairs_matched") != 10:
+        fail(f"-r nopts.nvm: counters feature_seeds "
+             f"{fcount.get('feature_seeds')} (seeds returned {n_fs}), "
+             f"pairs_matched {fcount.get('pairs_matched')} (the five "
+             f"cameras' 10 pairs)")
     path_launch_gate("-r nopts.nvm", fr_launches)
     if not (f_acc > 0.4 * n_fs and f_n >= 20 * f_acc and f_med < 2.5e-3
             and fst["live_patches"] == f_n):

@@ -235,7 +235,7 @@ def _build_reconstructor(path: str, out_dir: str, device,
                 centers, cam_masks, s_ipts, colors = generate_seed_patches(
                     data.cameras, _pinhole_images(data.cameras, images,
                                                   cfg),
-                    cfg, max_epipolar_dist=3.0, device=device)
+                    cfg, max_epipolar_dist=3.0, device=device, trace=tr)
                 rec._log(f"feature seeding: {len(centers)} seeds")
                 if len(centers):
                     rec.load_seeds(centers, cam_masks, s_ipts, colors)

@@ -8,11 +8,21 @@ with >= minCamNum views triangulated into seed patches (:84-98).
 Detection, description and matching run on the device the caller names;
 the union-find, the triangulation and the colour pick run on the host in
 numpy float64 (tiny, irregular), as in the JAX package.
+
+Given a job's ``Trace`` (``pais_mvs_tpu_torch.trace``), the pipeline
+records the spans features/detect (per camera: the grey conversion,
+``detect_and_describe`` and the keypoints' fetch), features/match (the
+fundamental matrices and ``match_all_pairs``) and features/tracks (the
+union, the triangulation and the colours), and the counters keypoints
+(the true mask slots of every camera), pairs_matched, pairs_kept (the
+pairs at or above a quarter of the best pair's matches), pair_matches
+(the kept pairs' matches), tracks and feature_seeds.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +34,7 @@ from pais_mvs_tpu_torch.features import detect as det
 from pais_mvs_tpu_torch.features import matching as mat
 from pais_mvs_tpu_torch.models.camera import CameraParams, _np_quat_to_rotation
 from pais_mvs_tpu_torch.ops import pyramid as pyr
+from pais_mvs_tpu_torch.trace import Trace
 
 
 class _UnionFind:
@@ -105,22 +116,33 @@ def generate_seed_patches(params: Sequence[CameraParams],
                           max_epipolar_dist: float = 3.0,
                           k_per_octave: int = 192,
                           num_octaves: int = 4,
-                          device="cuda"):
+                          device="cuda",
+                          trace: Optional[Trace] = None):
     """Full seeding pipeline: detect -> describe -> match -> tracks ->
     triangulate. Returns (centers [M,3], cam_masks [M,C], img_points
     [M,C,2], colors [M,3]) numpy arrays ready for Reconstructor.load_seeds.
+    ``trace`` gets the pipeline's spans and counters (module note).
     """
     dev = resolve_device(device)
     C = len(params)
+    span = ((lambda name: contextlib.nullcontext()) if trace is None
+            else trace.span)
+    count = (lambda name, n: None) if trace is None else trace.count
     descs, xys, masks, kps = [], [], [], []
     Rs, Ts, Ks, centers_np, focals, pps = [], [], [], [], [], []
     for p, img in zip(params, images):
         h, w = img.shape[:2]
-        kp, desc = detect_and_describe(img, dev, k_per_octave, num_octaves)
+        with span("features/detect"):
+            kp, desc = detect_and_describe(img, dev, k_per_octave,
+                                           num_octaves)
+            # the keypoints and their mask in the one fetch
+            xym = torch.cat([kp.xy, kp.mask[:, None].to(kp.xy.dtype)],
+                            1).cpu().numpy()
         descs.append(desc)
         xys.append(kp.xy)
         masks.append(kp.mask)
-        kps.append(kp.xy.cpu().numpy())
+        kps.append(xym[:, :2])
+        count("keypoints", int(np.count_nonzero(xym[:, 2])))
 
         R = _np_quat_to_rotation(np.asarray(p.quaternion, dtype=np.float64))
         c = np.asarray(p.center, dtype=np.float64)
@@ -132,19 +154,34 @@ def generate_seed_patches(params: Sequence[CameraParams],
         Rs.append(R); Ts.append(-R @ c); Ks.append(K)
         centers_np.append(c); focals.append(f); pps.append(pp)
 
-    Fs = [[None] * C for _ in range(C)]
-    for i in range(C):
-        for j in range(C):
-            if i != j:
-                Fs[i][j] = mat.fundamental_from_rig(
-                    Rs[i], Ts[i], Ks[i], Rs[j], Ts[j], Ks[j])
+    with span("features/match"):
+        Fs = [[None] * C for _ in range(C)]
+        for i in range(C):
+            for j in range(C):
+                if i != j:
+                    Fs[i][j] = mat.fundamental_from_rig(
+                        Rs[i], Ts[i], Ks[i], Rs[j], Ts[j], Ks[j])
+        pairs = mat.match_all_pairs(descs, xys, masks, Fs,
+                                    max_epipolar_dist=max_epipolar_dist)
+    count("pairs_matched", C * (C - 1) // 2)
+    count("pairs_kept", len(pairs))
+    count("pair_matches", sum(len(i1) for i1, _ in pairs.values()))
+    with span("features/tracks"):
+        out = _tracks_to_seeds(pairs, xys, kps, images, C, cfg, Rs,
+                               centers_np, focals, pps, count)
+    count("feature_seeds", len(out[0]))
+    return out
 
-    pairs = mat.match_all_pairs(descs, xys, masks, Fs,
-                                max_epipolar_dist=max_epipolar_dist)
+
+def _tracks_to_seeds(pairs, xys, kps, images, C, cfg, Rs, centers_np,
+                     focals, pps, count):
+    """The kept pairs' matches merged into tracks, triangulated and
+    coloured: ``generate_seed_patches``' result."""
     # cameras of different sizes yield different octave/keypoint counts —
     # size the union-find by the LARGEST so node ids never collide
     k_per_cam = max(int(x.shape[0]) for x in xys)
     tracks = merge_tracks(pairs, C, k_per_cam, cfg.min_cam_num)
+    count("tracks", len(tracks))
     if not tracks:
         z = np.zeros
         return (z((0, 3)), z((0, C), dtype=bool), z((0, C, 2)), z((0, 3)))

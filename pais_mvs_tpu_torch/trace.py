@@ -29,7 +29,11 @@ The port's spans, from the CLI down (``cli.py``,
   scene/decode          the PNG decode (``cli._load_images``)
   scene/build           ``build_scene``: scene/undistort, scene/upload and
                         scene/pyramid (one each a camera) inside
-  seeds/load, seeds     the seeds' ingest; their refine rounds
+  seeds/load, seeds     the seeds' ingest; their refine rounds. A
+                        point-less NVM seeds from features inside
+                        seeds/load: features/detect (one a camera),
+                        features/match, features/tracks
+                        (``features/seeding.py``)
   expand                the expansion: expand/grids, then expand/round
                         (one a round, with its id) holding
                         expand/prepare (expand/candidates inside),
@@ -60,7 +64,9 @@ graph_replays, geometry_launches and fitness_launches (the launches of
 the refine's geometry kernel and of K1, ``cuda_fitness.LAUNCHES`` counted
 around each of the job's refines, graph replays included: equal on a job
 whose fitness runs on the card, every K1 call's geometry ran on the
-kernel; 0 on the CPU); deflate_threads (the deflate pool's width) is set, not
+kernel; 0 on the CPU); from the feature seeding keypoints,
+pairs_matched, pairs_kept, pair_matches, tracks and feature_seeds
+(``features/seeding.py``'s note); deflate_threads (the deflate pool's width) is set, not
 summed (``Trace.set``).
 """
 
